@@ -1,0 +1,149 @@
+"""The per-frame tracking step: the reference's TrackFrame
+(jni/Tracker.cc:76-146) against an existing map.
+
+Port of ``frame_step`` and the ``STAT_*`` layout of its packed stats
+vector from the JAX package's ``models/frame_step.py``: pyramid + FAST
+front-end, SBI build, ESM rotation prior, motion model, TrackMap,
+motion-model update, inlier/outlier bookkeeping, HandleBadPoints
+(jni/MapMaker.cc:140-164) and the quality / keyframe tests. The stats
+vector carries every scalar a host control loop reads, so the host reads
+the device once per frame.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from visualslam_android_tpu_torch.config import SLAMConfig
+from visualslam_android_tpu_torch.models import keyframe as kf_mod
+from visualslam_android_tpu_torch.models import mapmaker
+from visualslam_android_tpu_torch.models import tracker as tracker_mod
+from visualslam_android_tpu_torch.models.map_store import FrameData, SLAMMap
+from visualslam_android_tpu_torch.ops import sbi as sbi_ops
+from visualslam_android_tpu_torch.utils.tensors import TensorTree
+
+N_LEVELS = 4
+
+# Packed per-frame stats vector layout (indices into FrameStepOut.stats).
+STAT_QUALITY = 0          # assess_tracking_quality code (0/1/2)
+STAT_DIST_EXCESSIVE = 1   # IsDistanceToNearestKeyFrameExcessive
+STAT_NEED_KF = 2          # NeedNewKeyFrame
+STAT_DID_COARSE = 3
+STAT_DEPTH = 4            # scene depth mean after this frame
+STAT_VEL_MAG = 5
+STAT_VEL_MSD = 6
+STAT_N_FOUND = 7
+STAT_N_POINTS = 8         # post-HandleBadPoints
+STAT_N_KEYFRAMES = 9
+STAT_N_MEAS = 10
+STAT_ANY_FAILURE = 11     # failure queue nonempty (as of frame start)
+STAT_ANY_NEW = 12         # new-point queue nonempty (post bad-point cull)
+STAT_ANY_NEWLY_BAD = 13
+STAT_PENDING_CONV = 14    # passthrough of last BA's convergence scalar
+STAT_PENDING_OK = 15      # passthrough of last BA's finite-map scalar
+STAT_FOUND_L0 = 16        # .. STAT_FOUND_L0 + N_LEVELS
+STAT_POSE_R = STAT_FOUND_L0 + N_LEVELS   # 9 floats, row-major
+STAT_POSE_T = STAT_POSE_R + 9            # 3 floats
+STATS_LEN = STAT_POSE_T + 3
+
+
+@dataclasses.dataclass(frozen=True)
+class FrameStepOut(TensorTree):
+    slam_map: SLAMMap            # inlier/outlier counts updated, bad culled
+    R: torch.Tensor              # [3, 3] tracked pose
+    t: torch.Tensor              # [3]
+    velocity: torch.Tensor       # [6] updated motion model
+    msd: torch.Tensor            # [] scene-depth-scaled |v|
+    depth: torch.Tensor          # [] scene depth mean
+    sbi: sbi_ops.SBI             # this frame's SBI (next frame's prior)
+    frame: FrameData             # kept for the keyframe queue
+    found: torch.Tensor          # [N]
+    found_pos: torch.Tensor      # [N, 2]
+    search_level: torch.Tensor   # [N]
+    did_subpix: torch.Tensor     # [N]
+    new_points: torch.Tensor     # [N] new-point queue, bad-culled
+    stats: torch.Tensor          # [STATS_LEN] f32
+
+
+def frame_step(img, slam_map: SLAMMap, cam, R, t, velocity, msd, depth_mean,
+               wiggle_depth_norm, sbi_last: sbi_ops.SBI, new_points,
+               failure_mask, pending, config: SLAMConfig,
+               use_prior: bool = True, forced_coarse: bool = False,
+               uniforms=None, generator=None) -> FrameStepOut:
+    """The complete per-frame hot path.
+
+    use_prior=False on a relocalization frame (pose from the relocalizer,
+    Tracker.cc:169-174); forced_coarse=True on that frame and the
+    just-recovered one. uniforms / generator feed track_map's two random
+    selections (see tracker.track_map). The input map is not modified:
+    the returned map shares the keyframe store and carries new point and
+    measurement tensors.
+    """
+    tc = config.tracker
+    f32 = torch.float32
+
+    frame = kf_mod.make_frame(img, config)
+    sbi_cur = sbi_ops.make_sbi(frame.pyramid[-1], tc.sbi_blur)
+
+    if use_prior:
+        sbi_rot = tracker_mod.calc_sbi_rotation(
+            sbi_cur.template, sbi_last, cam, tc.sbi_esm_iters
+        )
+        R1, t1 = tracker_mod.apply_motion_model(R, t, velocity, sbi_rot,
+                                                True)
+    else:
+        R1, t1 = R, t
+
+    out = tracker_mod.track_map(
+        frame, slam_map, cam, R1, t1, msd, config, recovered=forced_coarse,
+        uniforms=uniforms, generator=generator,
+    )
+
+    depth_new = torch.where(out.depth_stats_valid, out.scene_depth_mean,
+                            depth_mean)
+    velocity2, mag, msd2 = tracker_mod.update_motion_model(
+        out.R, out.t, R1, t1, velocity, depth_new, tc.motion_decay
+    )
+
+    # Inlier/outlier bookkeeping + HandleBadPoints (every frame, as in
+    # every pass of the reference's run() loop, MapMaker.cc:116).
+    pts = slam_map.points
+    pts = pts.replace(inlier_count=pts.inlier_count + out.inlier_inc,
+                      outlier_count=pts.outlier_count + out.outlier_inc)
+    sm, newly_bad = mapmaker.handle_bad_points(slam_map.replace(points=pts),
+                                               config)
+    new_points2 = new_points & ~newly_bad
+
+    quality = tracker_mod.assess_tracking_quality(
+        out.attempted_per_level, out.found_per_level,
+        tc.quality_good, tc.quality_lost,
+    )
+    dist_exc = mapmaker.dist_to_nearest_excessive(
+        sm.keyframes, out.R, out.t,
+        config.mapmaker.wiggle_scale, config.mapmaker.kf_distance_factor,
+    )
+    need_kf = mapmaker.need_new_keyframe(
+        sm.keyframes, out.R, out.t, depth_new, wiggle_depth_norm,
+        config.mapmaker.max_kf_dist_mult,
+    )
+
+    scalars = [
+        quality, dist_exc, need_kf, out.did_coarse, depth_new, mag, msd2,
+        torch.sum(out.found), sm.points.count(), sm.keyframes.count(),
+        sm.meas.count(), torch.any(failure_mask), torch.any(new_points2),
+        torch.any(newly_bad), pending[0], pending[1],
+    ]
+    stats = torch.cat([
+        torch.stack([s.to(f32) for s in scalars]),
+        out.found_per_level.to(f32), out.R.reshape(-1), out.t,
+    ])
+
+    return FrameStepOut(
+        slam_map=sm, R=out.R, t=out.t, velocity=velocity2, msd=msd2,
+        depth=depth_new, sbi=sbi_cur, frame=frame,
+        found=out.found, found_pos=out.found_pos,
+        search_level=out.search_level, did_subpix=out.did_subpix,
+        new_points=new_points2, stats=stats,
+    )

@@ -1,0 +1,58 @@
+"""State carry-over from the JAX package: numpy trees -> the port's
+dataclasses of tensors.
+
+Each function takes one of the JAX package's NamedTuples after
+``jax.tree.map(np.asarray, x)`` (so numpy arrays, or tuples of them, in
+the fields) and returns the port's dataclass with the same field names on
+the given device. With it both packages compute on the same map, camera,
+SBI and frame. This module itself imports neither jax nor the JAX package.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from visualslam_android_tpu_torch.models.map_store import (
+    FrameData,
+    KeyFrameStore,
+    MeasStore,
+    PointStore,
+    SLAMMap,
+)
+from visualslam_android_tpu_torch.ops.camera import Camera
+from visualslam_android_tpu_torch.ops.sbi import SBI
+
+
+def _tensor(x, device):
+    if isinstance(x, tuple):
+        return tuple(_tensor(v, device) for v in x)
+    return torch.as_tensor(np.array(x), device=device)
+
+
+def _convert(cls, tree, device):
+    return cls(**{f.name: _tensor(getattr(tree, f.name), device)
+                  for f in dataclasses.fields(cls)})
+
+
+def map_from_numpy(tree, device="cpu") -> SLAMMap:
+    return SLAMMap(
+        points=_convert(PointStore, tree.points, device),
+        keyframes=_convert(KeyFrameStore, tree.keyframes, device),
+        meas=_convert(MeasStore, tree.meas, device),
+        good=_tensor(tree.good, device),
+    )
+
+
+def camera_from_numpy(tree, device="cpu") -> Camera:
+    return _convert(Camera, tree, device)
+
+
+def sbi_from_numpy(tree, device="cpu") -> SBI:
+    return _convert(SBI, tree, device)
+
+
+def frame_from_numpy(tree, device="cpu") -> FrameData:
+    return _convert(FrameData, tree, device)
