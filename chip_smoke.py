@@ -4,32 +4,63 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-It drives the port's main path, the per-frame tracking step, at the
-reference's full size and checks it:
+It drives the port's two main paths at the reference's full size (800x480
+frames, a 2048-slot map) and checks them: the per-frame tracking step on a
+fixture map, and the stereo bootstrap that builds a map from a sideways
+camera motion and then tracks on it.
 
 1. device: requires CUDA; prints the card's name and power limit;
-2. build: compiles the CUDA kernel (csrc/fast.cu) with nvcc;
-3. kernel vs plain: on an 800x480 frame's four pyramid levels, the FAST
-   kernel against its plain PyTorch version (masks equal, scores within
-   1e-3), and both timed with CUDA events (median of 50), eager and as
-   CUDA-graph replays (device time);
+2. build: compiles the CUDA kernels (csrc/fast.cu) with nvcc and prints
+   what ptxas reports for each;
+3. kernels vs plain, on an 800x480 frame's four pyramid levels, each timed
+   with CUDA events (median of 50), eager and as CUDA-graph replays (device
+   time), beside its bound (bytes moved over the memory rate, or f32
+   operations over the f32 rate, whichever is longer):
+   - fast_detect, one launch per level: masks equal to the plain PyTorch
+     version, scores within 1e-3, at arc lengths 9 and 10;
+   - fast_detect_levels, the four levels in one launch: the same checks,
+     and bit-equal to the single-level launches;
+   - fast_nonmax_levels, the barrier-10 rescore fused with the 3x3 nonmax:
+     bit-equal to nonmax_3x3 on the detect kernel's score, and equal to its
+     plain version except at counted near-ties of two plain scores. Its
+     bound counts what this frame's corners ask for: the corner mask read,
+     the nonmax mask written, and the 32-byte sectors of the image under
+     the rings of the corners that have a neighbouring corner;
 4. slice: builds the 2048-slot fixed map of ``bench.py`` on the card,
    renders its 100 chained frames there and runs ``frame_step`` over them,
    chaining pose, velocity, SBI and map; every frame must find more than
    50 points with quality not BAD, stay within the pose-error bound of the
-   rendered ground truth, and launch the FAST kernel exactly 4 times;
+   rendered ground truth, and launch fast_detect_levels exactly once;
 5. card vs CPU: the first 5 frames again on the CPU through the plain
    path, from the same state with the same random draws;
-6. timing: a warm second pass over the 100 frames (frames/s), and the
-   split between the front-end (make_frame) and the rest.
+6. timing: three warm passes over the 100 frames (frames/s and their
+   range), and the split between the front-end (make_frame) and the rest;
+7. bootstrap: renders a 29-frame sideways path on the card; trail_start on
+   frame 0, trail_advance over frames 1..6, init_from_stereo on frame 6,
+   then frame_step over the 22 remaining frames on the map it built. At
+   least 200 trails must survive, the homography must succeed and recover
+   the rendered motion (rotation within 0.01 rad, translation direction
+   within 3 degrees), at least 100 points must triangulate in front of the
+   camera and lie on z = 0 after the plane alignment, every tracked frame
+   must find more than 50 points with quality not BAD and follow the
+   rendered motion, and the path must launch fast_detect_levels once per
+   frame and fast_nonmax_levels once per keyframe, and nothing through
+   the single-image wrapper, which no path runs since the levels go in one
+   launch. The three heavy stages of init_from_stereo are timed from here
+   (synchronised host clock around each);
+8. bootstrap card vs CPU: the same frames and the same MLESAC and
+   plane-RANSAC draws through the plain path on the CPU: (R2, t2) within
+   1e-3, n_ok within 2%, common points within 1e-3.
 
 Any failed check raises and the script exits non-zero. The last two lines
-of standard output are a JSON object describing the kernels and the
+of standard output are a JSON object describing the kernels (`launches`
+is the sum over phases 4 and 7, `launches_by_path` gives each) and the
 ``{"ok": true, "device": ...}`` line. It imports no jax.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -49,6 +80,25 @@ FOUND_AGREE = 0.98     # card vs CPU: share of points either side found
 # frame there stays below a fifth of these.
 MAX_T_ERR = 0.02       # m
 MAX_R_ERR = 0.01       # rad
+N_TIMED_PASSES = 3     # warm passes over the chain, for the run-to-run range
+# A fused-nonmax pixel may differ from the plain version only where two
+# plain scores lie this close: each kernel score is within SCORE_ATOL of
+# its plain value, so a comparison of two can flip within twice that.
+NEAR_TIE = 2 * SCORE_ATOL
+# The bootstrap phase: frame 0 starts the trails, frames 1..6 advance them,
+# frame 6 is the second keyframe, 22 more frames are tracked on the new map.
+N_TRAIL_FRAMES = 6
+N_TRACK_FRAMES = 22
+# Tracked motion since keyframe 1 against the rendered truth, in the map's
+# scale (baseline = 0.1): bounds from CPU runs of the same path (see
+# CHANGES.md); the map comes from an unrefined homography, so they are wider
+# than the fixture map's.
+BOOT_TRACK_R_ERR = 0.02  # rad
+BOOT_TRACK_T_ERR = 0.02  # map units
+# Published peaks of one H100 SXM: HBM3 rate and f32 rate outside the tensor
+# cores.
+H100_BYTES_PER_S = 3.35e12
+H100_F32_OPS_PER_S = 67e12
 
 
 class SmokeFailure(RuntimeError):
@@ -122,26 +172,49 @@ def trajectory(R0, t0, n_frames):
 
 
 def rot_angle(Ra, Rb):
-    c = (torch.trace(Ra @ Rb.T) - 1.0) / 2.0
-    return float(torch.arccos(torch.clamp(c, -1.0, 1.0)))
+    """Angle of Ra Rb^T, from its sine and cosine (an arccos of the trace
+    alone rounds every angle below ~5e-4 rad to 0 in f32)."""
+    D = Ra @ Rb.T
+    s = 0.5 * torch.linalg.vector_norm(torch.stack(
+        [D[2, 1] - D[1, 2], D[0, 2] - D[2, 0], D[1, 0] - D[0, 1]]))
+    return float(torch.atan2(s, (torch.trace(D) - 1.0) / 2.0))
 
 
-def phase_kernel(device, fast, fixtures, synthetic, image):
-    """Kernel against plain version on the four level shapes."""
-    config = fixtures.full_config()
-    tc = config.tracker
+def level_images(device, fixtures, synthetic, image):
+    """The four pyramid levels of one rendered 800x480 frame."""
     from visualslam_android_tpu_torch.ops import camera as cam_ops
 
+    config = fixtures.full_config()
+    tc = config.tracker
     cam = cam_ops.make_camera(config.camera.params(), tc.width, tc.height,
                               device=device)
     scene = synthetic.make_planar_scene(np.random.default_rng(3),
                                         px_per_m=240.0, device=device)
     R0, t0 = synthetic.look_at_pose((0.0, 0.0, 0.0), device=device)
     img = synthetic.render(scene, cam, R0, t0, (tc.height, tc.width))
-    levels = image.make_pyramid(img, tc.n_levels)
+    return [lvl.contiguous() for lvl in
+            image.make_pyramid(img, tc.n_levels)], tc.fast_thresholds
+
+
+def detect_bound_ms(n_pixels):
+    """Least time for FAST on n_pixels: 9 bytes per pixel (f32 read, bool
+    and f32 write) over the memory rate, against 131 f32 operations per
+    pixel (16 ring terms of 2 compares, 2 subtractions, 2 max, 2 adds;
+    hi, lo and the final max) over the f32 rate."""
+    return bound_ms(9 * n_pixels, 131 * n_pixels)
+
+
+def bound_ms(n_bytes, n_ops):
+    by_bytes = 1e3 * n_bytes / H100_BYTES_PER_S
+    by_ops = 1e3 * n_ops / H100_F32_OPS_PER_S
+    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+
+
+def phase_detect(levels, thresholds, fast):
+    """The single-level wrapper against its plain version on each of the
+    four level shapes, and both timed."""
     max_err, rows = 0.0, []
-    for lvl, (level, thresh) in enumerate(zip(levels, tc.fast_thresholds)):
-        level = level.contiguous()
+    for lvl, (level, thresh) in enumerate(zip(levels, thresholds)):
         for t, arc in ((thresh, 10), (10, 10), (thresh, 9), (10, 9)):
             m_k, s_k = fast.detect(level, t, arc)
             m_p, s_p = fast.detect_reference(level, t, arc)
@@ -161,6 +234,102 @@ def phase_kernel(device, fast, fixtures, synthetic, image):
         rows.append((tuple(level.shape), thresh, ms, plain_ms, eager,
                      plain_eager, n))
     return max_err, rows
+
+
+def phase_detect_levels(levels, thresholds, fast):
+    """All four levels in one launch against the plain version per level."""
+    max_err = 0.0
+    for arc in (10, 9):
+        masks, scores = fast.detect_levels(levels, thresholds, arc)
+        torch.cuda.synchronize()
+        for lvl, (level, t, m_k, s_k) in enumerate(
+                zip(levels, thresholds, masks, scores)):
+            m_p, s_p = fast.detect_reference(level, t, arc)
+            check(torch.equal(m_k, m_p),
+                  f"detect_levels mask differs at level {lvl} arc={arc}: "
+                  f"{int((m_k != m_p).sum())} pixels")
+            err = float(torch.max(torch.abs(s_k - s_p)))
+            check(err <= SCORE_ATOL,
+                  f"detect_levels score differs by {err} at level {lvl}")
+            max_err = max(max_err, err)
+            # The single-level wrapper is the same kernel: same bits.
+            m_1, s_1 = fast.detect(level, t, arc)
+            check(torch.equal(m_1, m_k) and torch.equal(s_1, s_k),
+                  f"detect and detect_levels differ at level {lvl}")
+    eager, ms = cuda_ms(lambda: fast.detect_levels(levels, thresholds))
+    plain_eager, plain_ms = cuda_ms(
+        lambda: [fast.detect_reference(lv, t)
+                 for lv, t in zip(levels, thresholds)]
+    )
+    return max_err, ms, plain_ms, eager, plain_eager
+
+
+def phase_nonmax_levels(levels, thresholds, fast):
+    """The fused barrier-10 rescore + 3x3 nonmax against (a) nonmax_3x3 on
+    the detect kernel's own barrier-10 score, which it must equal bit for
+    bit, and (b) its plain version, from which it may differ only where
+    the plain scores of a pixel and of its largest neighbouring corner lie
+    within NEAR_TIE of each other (each score is within SCORE_ATOL of its
+    plain value). Returns a dict: the measured mask differences (as counts
+    and as the largest |difference| of the masks read as 0/1), the times,
+    and what this run's corners make the function read and compute."""
+    cmasks, _ = fast.detect_levels(levels, thresholds)
+    fused = fast.nonmax_levels(levels, cmasks)
+    plain = fast.nonmax_levels_reference(levels, cmasks)
+    torch.cuda.synchronize()
+    out = {"differ_from_unfused": 0, "near_tie_pixels": 0, "max_abs_err": 0.0,
+           "corners": 0, "scores_needed": 0, "image_sectors": 0}
+    for lvl, (level, cm, f_k, f_p) in enumerate(
+            zip(levels, cmasks, fused, plain)):
+        want = fast.nonmax_3x3(cm, fast.detect(level, 10)[1])
+        n_unfused = int((f_k != want).sum())
+        out["differ_from_unfused"] += n_unfused
+        check(n_unfused == 0,
+              f"fused nonmax differs from nonmax_3x3 on the kernel's score "
+              f"at level {lvl}: {n_unfused} pixels")
+        s = torch.where(cm, fast.detect_reference(level, 10)[1], -1.0)
+        pad = torch.nn.functional.pad(s, (1, 1, 1, 1), value=-1.0)
+        H, W = s.shape
+        neigh = torch.stack([pad[1 + dy:1 + dy + H, 1 + dx:1 + dx + W]
+                             for dy in (-1, 0, 1) for dx in (-1, 0, 1)
+                             if (dx, dy) != (0, 0)]).max(dim=0).values
+        near = torch.abs(s - neigh) < NEAR_TIE
+        differ = f_k != f_p
+        other = int((differ & ~near).sum())
+        check(other == 0,
+              f"fused nonmax differs from its plain version at {other} "
+              f"pixels of level {lvl} that are no near-tie")
+        out["near_tie_pixels"] += int(differ.sum())
+        out["max_abs_err"] = max(out["max_abs_err"], float(
+            (f_k.float() - f_p.float()).abs().max()))
+        check(int(f_k.sum()) > 0, f"no nonmax corner at level {lvl}")
+        # What this run's data asks for: a corner with no neighbouring
+        # corner is kept without a score; every other corner needs its ring
+        # score once, i.e. its centre and 16 ring pixels read.
+        needs = cm & (neigh >= 0)
+        out["corners"] += int(cm.sum())
+        out["scores_needed"] += int(needs.sum())
+        out["image_sectors"] += ring_sectors(needs, fast.RING_OFFSETS)
+    out["eager_ms"], out["ms"] = cuda_ms(
+        lambda: fast.nonmax_levels(levels, cmasks))
+    out["plain_eager_ms"], out["plain_ms"] = cuda_ms(
+        lambda: fast.nonmax_levels_reference(levels, cmasks))
+    return out
+
+
+def ring_sectors(needs, ring_offsets):
+    """Distinct 32-byte sectors of a contiguous f32 image that hold the
+    centre or a ring pixel (clamped to the image) of a pixel set in
+    `needs`."""
+    H, W = needs.shape
+    ys, xs = torch.nonzero(needs, as_tuple=True)
+    touched = torch.zeros(-(-H * W // 8) * 8, dtype=torch.bool,
+                          device=needs.device)
+    for dx, dy in ((0, 0), *ring_offsets):
+        y = torch.clamp(ys + dy, 0, H - 1)
+        x = torch.clamp(xs + dx, 0, W - 1)
+        touched[y * W + x] = True
+    return int(touched.view(-1, 8).any(dim=1).sum())
 
 
 def run_chain(frame_step, frames, state, config, uniforms, cam):
@@ -188,14 +357,276 @@ def run_chain(frame_step, frames, state, config, uniforms, cam):
     return outs
 
 
+def bootstrap_frames(device, config, synthetic, cam_ops):
+    """The bootstrap scene: camera, truth poses and rendered frames of the
+    sideways path (frame 0 starts the trails, frame N_TRAIL_FRAMES is the
+    second keyframe, N_TRACK_FRAMES more are tracked on the new map)."""
+    tc = config.tracker
+    cam = cam_ops.make_camera(config.camera.params(), tc.width, tc.height,
+                              device=device)
+    scene = synthetic.make_planar_scene(np.random.default_rng(21), depth=4.0,
+                                        px_per_m=240.0, device=device)
+    R0, t0 = synthetic.look_at_pose((0.0, 0.0, 0.0), device=device)
+    n = N_TRAIL_FRAMES + 1 + N_TRACK_FRAMES
+    poses = [synthetic.sideways_pose(R0, t0, k / (n - 1)) for k in range(n)]
+    frames = [synthetic.render(scene, cam, R, t, (tc.height, tc.width))
+              for R, t in poses]
+    return cam, poses, frames
+
+
+def run_trails(frames, config, bootstrap, frame_step):
+    """trail_start on frame 0 and trail_advance over the next
+    N_TRAIL_FRAMES frames: (trails, second frame, its SBI, counts)."""
+    prev, sbi = frame_step.bootstrap_frontend(frames[0], config)
+    trails = bootstrap.trail_start(prev, config)
+    counts = [int(trails.valid.sum())]
+    for img in frames[1:N_TRAIL_FRAMES + 1]:
+        frame, sbi = frame_step.bootstrap_frontend(img, config)
+        trails, count = bootstrap.trail_advance(trails, frame, prev, config)
+        counts.append(int(count))
+        check(counts[-1] >= config.tracker.min_trails_to_continue,
+              f"trails died: {counts}")
+        prev = frame
+    return trails, prev, sbi, counts
+
+
+def track_on(init, sbi, frames, cam, config, frame_step, generator):
+    """frame_step over `frames` from the state init_from_stereo made.
+    Returns per-frame (R, t, stats)."""
+    N = config.tracker.max_map_points
+    K = config.mapmaker.max_keyframes
+    device = frames[0].device
+    new_points = torch.zeros(N, dtype=torch.bool, device=device)
+    failure = torch.zeros(N, K, dtype=torch.bool, device=device)
+    pending = torch.zeros(2, device=device)
+    sm, R, t, v, msd, depth = (init.slam_map, init.R, init.t, init.velocity,
+                               init.msd, init.depth)
+    outs = []
+    for img in frames:
+        o = frame_step.frame_step(
+            img, sm, cam, R, t, v, msd, depth, init.wiggle_depth_norm, sbi,
+            new_points, failure, pending, config, generator=generator,
+        )
+        sm, R, t, v, msd, depth, sbi, new_points = (
+            o.slam_map, o.R, o.t, o.velocity, o.msd, o.depth, o.sbi,
+            o.new_points)
+        outs.append((o.R, o.t, o.stats))
+    return outs
+
+
+def relative_pose(Ra, ta, Rb, tb):
+    """b-from-a: (Rb Ra^T, tb - Rb Ra^T ta)."""
+    R = Rb @ Ra.T
+    return R, tb - R @ ta
+
+
+def angle_between(a, b):
+    c = torch.dot(a, b) / (torch.linalg.vector_norm(a)
+                           * torch.linalg.vector_norm(b))
+    return float(torch.rad2deg(torch.arccos(torch.clamp(c, -1.0, 1.0))))
+
+
+def points_by_source(slam_map):
+    """{source pixel: world position} of the live map points."""
+    pts = slam_map.points
+    live = pts.live().cpu().numpy()
+    center = pts.center.cpu().numpy()[live]
+    pos = pts.pos_w.cpu().numpy()[live]
+    return {tuple(c): p for c, p in zip(center, pos)}
+
+
+def phase_bootstrap(device, fast, bootstrap, frame_step, tracker, fixtures,
+                    synthetic, cam_ops):
+    """The stereo bootstrap at full width on the card, then tracking on the
+    map it built; returns what the card-against-CPU phase compares and the
+    launch counts of this path."""
+    config = fixtures.full_config()
+    mc = config.mapmaker
+    cam, poses, frames = bootstrap_frames(device, config, synthetic, cam_ops)
+    gen = torch.Generator(device=device).manual_seed(0)
+    # The rendered input must be corner-rich (checked before the counts are
+    # set to 0: these launches are not the path's).
+    for k in (0, N_TRAIL_FRAMES):
+        n_corners = int(fast.detect(frames[k], 10)[0].sum())
+        check(n_corners >= 1000,
+              f"bootstrap frame {k} shows only {n_corners} FAST corners")
+    torch.cuda.synchronize()
+    for name in fast.LAUNCHES:
+        fast.LAUNCHES[name] = 0
+
+    t_wall = time.perf_counter()
+    trails, second, sbi, counts = run_trails(frames, config, bootstrap,
+                                             frame_step)
+    with timed_stages(bootstrap) as stage_ms:
+        init = bootstrap.init_from_stereo(trails, second, cam, config,
+                                          generator=gen)
+    torch.cuda.synchronize()
+    boot_s = time.perf_counter() - t_wall
+    print(f"bootstrap: trails {counts}, ok={init.ok} {init.reason!r}, "
+          f"n_ok {init.n_ok}, points {init.n_points}, {boot_s:.3f} s in all; "
+          f"first-call stage ms {fmt_stages(stage_ms)}")
+    check(counts[-1] >= 200, f"only {counts[-1]} trails at the second touch")
+    check(init.ok, f"init_from_stereo failed: {init.reason}")
+    check(bool(init.homography.success), "homography not successful")
+
+    R_true, t_true = relative_pose(*poses[0], *poses[N_TRAIL_FRAMES])
+    r_err = rot_angle(init.R2, R_true)
+    t_deg = angle_between(init.t2, t_true)
+    print(f"bootstrap: rotation error {r_err:.6f} rad, translation "
+          f"direction error {t_deg:.4f} deg, |t2| "
+          f"{float(torch.linalg.vector_norm(init.t2)):.6f}")
+    check(r_err < 0.01, f"bootstrap rotation off by {r_err} rad")
+    check(t_deg < 3.0, f"bootstrap translation direction off by {t_deg} deg")
+    check(init.n_ok >= 100, f"only {init.n_ok} points triangulated")
+    pts = init.slam_map.points
+    live = pts.live()
+    z_cam0 = pts.pos_w @ init.slam_map.keyframes.R[0].T \
+        + init.slam_map.keyframes.t[0]
+    check(bool((z_cam0[live][:, 2] > 0).all()),
+          "a map point lies behind keyframe 0")
+    z = pts.pos_w[live][:, 2].abs()
+    share = float((z < mc.plane_inlier_threshold).float().mean())
+    print(f"bootstrap: after plane alignment |z| max {float(z.max()):.6f}, "
+          f"{100 * share:.2f}% of the points within "
+          f"{mc.plane_inlier_threshold}")
+    check(share >= 0.9, f"only {share} of the points lie on the plane z = 0")
+
+    outs = track_on(init, sbi, frames[N_TRAIL_FRAMES + 1:], cam, config,
+                    frame_step, gen)
+    torch.cuda.synchronize()
+    launches = dict(fast.LAUNCHES)
+    stats = torch.stack([o[2] for o in outs]).cpu().numpy()
+    n_found = stats[:, frame_step.STAT_N_FOUND]
+    quality = stats[:, frame_step.STAT_QUALITY]
+    # Tracked motion since keyframe 1 against the rendered truth, the
+    # truth's translation brought to the map's scale (|t2| = wiggle_scale).
+    scale = mc.wiggle_scale / float(torch.linalg.vector_norm(t_true))
+    kf = init.slam_map.keyframes
+    worst_r = worst_t = 0.0
+    for (R, t, _), pose in zip(outs, poses[N_TRAIL_FRAMES + 1:]):
+        R_rel, t_rel = relative_pose(kf.R[1], kf.t[1], R, t)
+        R_want, t_want = relative_pose(*poses[N_TRAIL_FRAMES], *pose)
+        worst_r = max(worst_r, rot_angle(R_rel, R_want))
+        worst_t = max(worst_t, float(torch.linalg.vector_norm(
+            t_rel - scale * t_want)))
+    print(f"bootstrap: {len(outs)} frames tracked on the new map: found min "
+          f"{n_found.min():.0f} mean {n_found.mean():.1f}, quality min "
+          f"{quality.min():.0f}, motion since keyframe 1 off by at most "
+          f"{worst_r:.6f} rad, {worst_t:.6f} map units")
+    check(bool(np.all(n_found > 50)),
+          f"a frame found <= 50 points on the new map: {n_found.tolist()}")
+    check(bool(np.all(quality != tracker.QUALITY_BAD)),
+          f"a frame tracked BAD on the new map: {quality.tolist()}")
+    check(worst_r < BOOT_TRACK_R_ERR and worst_t < BOOT_TRACK_T_ERR,
+          f"tracking on the new map drifted: {worst_r} rad, {worst_t}")
+    n_front = N_TRAIL_FRAMES + 1 + N_TRACK_FRAMES
+    check(launches["fast_detect_levels"] == n_front,
+          f"fast_detect_levels launched {launches['fast_detect_levels']} "
+          f"times over {n_front} frames")
+    check(launches["fast_nonmax_levels"] == 2,
+          f"fast_nonmax_levels launched {launches['fast_nonmax_levels']} "
+          f"times, expected one per keyframe")
+    check(launches["fast_detect"] == 0,
+          f"the single-image wrapper launched {launches['fast_detect']} "
+          f"times on a path that gives all levels to one launch")
+    return config, cam, frames, trails, second, init, launches
+
+
+@contextlib.contextmanager
+def timed_stages(bootstrap):
+    """Times the three heavy stages of init_from_stereo from outside it:
+    while the context is open, homography.compute, init_points_step and
+    calc_plane_aligner, as the bootstrap module reaches them, run between
+    two device synchronisations and their host-clock milliseconds land in
+    the yielded dict."""
+    targets = {"homography": (bootstrap.homography, "compute"),
+               "init_points": (bootstrap.fstep, "init_points_step"),
+               "plane_aligner": (bootstrap.mapmaker, "calc_plane_aligner")}
+    stage_ms = {}
+
+    def timed(stage, fn):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            stage_ms[stage] = 1e3 * (time.perf_counter() - t0)
+            return out
+        return run
+
+    saved = {stage: getattr(mod, attr)
+             for stage, (mod, attr) in targets.items()}
+    for stage, (mod, attr) in targets.items():
+        setattr(mod, attr, timed(stage, saved[stage]))
+    try:
+        yield stage_ms
+    finally:
+        for stage, (mod, attr) in targets.items():
+            setattr(mod, attr, saved[stage])
+
+
+def fmt_stages(stage_ms):
+    return ", ".join(f"{k} {v:.3f}" for k, v in stage_ms.items())
+
+
+def phase_bootstrap_cpu(config, cam, frames, trails, second, init_card,
+                        bootstrap, frame_step):
+    """Card against CPU for the bootstrap: the same frames and the same
+    MLESAC / plane-RANSAC draws through the plain path on the CPU."""
+    mc = config.mapmaker
+    gen = torch.Generator().manual_seed(1)
+    p = trails.valid.float().cpu()
+    hom_idx = torch.multinomial(p, mc.mlesac_trials * 4, replacement=True,
+                                generator=gen).reshape(-1, 4)
+    # New points fill slots from 0, so the first slots are live on both
+    # sides even if a few trails differ.
+    n_sure = int(0.95 * init_card.n_ok)
+    plane_idx = torch.randint(0, n_sure, (mc.plane_ransac_trials, 3),
+                              generator=gen)
+    dev = trails.cur_pos.device
+    with timed_stages(bootstrap) as stage_ms:
+        card = bootstrap.init_from_stereo(
+            trails, second, cam, config, homography_trial_idx=hom_idx.to(dev),
+            plane_trial_idx=plane_idx.to(dev))
+    torch.cuda.synchronize()
+    check(card.ok, f"card bootstrap with explicit draws failed: {card.reason}")
+    t_cpu = time.perf_counter()
+    cpu_frames = [f.cpu() for f in frames[:N_TRAIL_FRAMES + 1]]
+    c_trails, c_second, _, c_counts = run_trails(cpu_frames, config,
+                                                 bootstrap, frame_step)
+    cpu = bootstrap.init_from_stereo(
+        c_trails, c_second, cam.to("cpu"), config,
+        homography_trial_idx=hom_idx, plane_trial_idx=plane_idx)
+    check(cpu.ok, f"CPU bootstrap failed: {cpu.reason}")
+    cpu_s = time.perf_counter() - t_cpu
+    d_R = float(torch.max(torch.abs(card.R2.cpu() - cpu.R2)))
+    d_t = float(torch.max(torch.abs(card.t2.cpu() - cpu.t2)))
+    a, b = points_by_source(card.slam_map), points_by_source(cpu.slam_map)
+    common = sorted(set(a) & set(b))
+    d_p = max(float(np.max(np.abs(a[c] - b[c]))) for c in common)
+    print(f"bootstrap card vs CPU: trails {int(trails.valid.sum())} / "
+          f"{c_counts[-1]}, max |R2 diff| {d_R:.3e}, max |t2 diff| {d_t:.3e},"
+          f" n_ok {card.n_ok} / {cpu.n_ok}, {len(common)} common points, "
+          f"max position diff {d_p:.3e} (CPU {cpu_s:.1f} s); warm card "
+          f"stage ms {fmt_stages(stage_ms)}")
+    check(d_R <= 1e-3 and d_t <= 1e-3,
+          f"card and CPU disagree on (R2, t2): {d_R}, {d_t}")
+    check(abs(card.n_ok - cpu.n_ok) <= 0.02 * cpu.n_ok,
+          f"card and CPU n_ok differ: {card.n_ok} vs {cpu.n_ok}")
+    check(len(common) >= 0.95 * min(card.n_ok, cpu.n_ok),
+          f"card and CPU made different points: {len(common)} in common")
+    check(d_p <= 1e-3, f"card and CPU point positions differ by {d_p}")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SmokeFailure("CUDA is not available: chip_smoke needs a GPU")
     import visualslam_android_tpu_torch  # noqa: F401  (sets TF32 off)
-    from visualslam_android_tpu_torch.models import frame_step
+    from visualslam_android_tpu_torch.models import bootstrap, frame_step
     from visualslam_android_tpu_torch.models import keyframe as kf_mod
     from visualslam_android_tpu_torch.models import tracker
-    from visualslam_android_tpu_torch.ops import fast, image
+    from visualslam_android_tpu_torch.ops import camera as cam_ops
+    from visualslam_android_tpu_torch.ops import cuda_build, fast, image
     from visualslam_android_tpu_torch.ops import sbi as sbi_ops
     from visualslam_android_tpu_torch.utils import fixtures, synthetic
 
@@ -214,16 +645,44 @@ def main():
     t_build = time.perf_counter()
     lib = fast.build_kernel()
     print(f"build: {lib} in {time.perf_counter() - t_build:.3f} s")
+    for line in cuda_build.build_log("fast.cu").splitlines():
+        if "registers" in line or "Compiling entry" in line:
+            print(f"  {line.strip()}")
 
-    # ---- 3. kernel vs plain ----
-    max_err, rows = phase_kernel(device, fast, fixtures, synthetic, image)
+    # ---- 3. kernels vs plain ----
+    levels, thresholds = level_images(device, fixtures, synthetic, image)
+    n_pixels = sum(lv.numel() for lv in levels)
+    max_err, rows = phase_detect(levels, thresholds, fast)
     for shape, thresh, ms, plain_ms, eager, plain_eager, n in rows:
         print(f"fast level {shape} t={thresh}: device kernel {ms:.5f} ms, "
               f"plain {plain_ms:.5f} ms; eager call kernel {eager:.5f} ms, "
               f"plain {plain_eager:.5f} ms; {n} corners  [{card}]")
     print(f"fast max |score - plain| = {max_err}")
+    lv_err, lv_ms, lv_plain, lv_eager, lv_plain_eager = phase_detect_levels(
+        levels, thresholds, fast)
+    lv_bound, lv_by = detect_bound_ms(n_pixels)
+    print(f"fast 4 levels in one launch: device kernel {lv_ms:.5f} ms, "
+          f"plain {lv_plain:.5f} ms; eager call kernel {lv_eager:.5f} ms, "
+          f"plain {lv_plain_eager:.5f} ms; bound {lv_bound:.5f} ms by "
+          f"{lv_by}; max |score - plain| = {lv_err}  [{card}]")
+    nm = phase_nonmax_levels(levels, thresholds, fast)
+    # Corner mask read and nonmax mask written (2 bytes a pixel), and the
+    # image sectors under the rings of the corners that need a score; 99
+    # f32 operations per such score.
+    nm_bytes = 2 * n_pixels + 32 * nm["image_sectors"]
+    nm_bound, nm_by = bound_ms(nm_bytes, 99 * nm["scores_needed"])
+    print(f"fast rescore + nonmax, 4 levels in one launch: device kernel "
+          f"{nm['ms']:.5f} ms, plain {nm['plain_ms']:.5f} ms; eager call "
+          f"kernel {nm['eager_ms']:.5f} ms, plain {nm['plain_eager_ms']:.5f} "
+          f"ms; bound {nm_bound:.5f} ms by {nm_by}: {nm_bytes} bytes "
+          f"({nm['image_sectors']} image sectors; reading the whole image "
+          f"would make {6 * n_pixels}), {nm['scores_needed']} ring scores "
+          f"for {nm['corners']} corners; {nm['differ_from_unfused']} pixels "
+          f"differ from nonmax_3x3 on the kernel's score, "
+          f"{nm['near_tie_pixels']} (all near-ties) from the plain version, "
+          f"max |mask difference| {nm['max_abs_err']}  [{card}]")
 
-    # ---- 4. the slice ----
+    # ---- 4. the tracking slice on the fixture map ----
     config = fixtures.full_config()
     tc = config.tracker
     t_map = time.perf_counter()
@@ -246,13 +705,15 @@ def main():
     print(f"fixed map: {n_pts} points, {N_FRAMES} frames rendered in "
           f"{time.perf_counter() - t_map:.3f} s")
 
-    fast.KERNEL_LAUNCHES = 0
+    for key in fast.LAUNCHES:
+        fast.LAUNCHES[key] = 0
     outs = run_chain(frame_step, frames, state0, config, uniforms_dev, cam)
     torch.cuda.synchronize()
-    launches = fast.KERNEL_LAUNCHES
-    check(launches == 4 * N_FRAMES,
-          f"FAST kernel launched {launches} times over {N_FRAMES} frames, "
-          f"expected {4 * N_FRAMES}")
+    chain_launches = dict(fast.LAUNCHES)
+    check(chain_launches == {"fast_detect": 0, "fast_detect_levels": N_FRAMES,
+                             "fast_nonmax_levels": 0},
+          f"FAST launches over {N_FRAMES} tracked frames: {chain_launches}, "
+          f"expected one fast_detect_levels per frame and nothing else")
     stats = torch.stack([o[3] for o in outs]).cpu().numpy()
     n_found = stats[:, frame_step.STAT_N_FOUND]
     quality = stats[:, frame_step.STAT_QUALITY]
@@ -293,12 +754,14 @@ def main():
     check(worst_agree >= FOUND_AGREE,
           f"card and CPU found sets agree on {worst_agree} < {FOUND_AGREE}")
 
-    # ---- 6. timing (warm second pass) ----
-    torch.cuda.synchronize()
-    t_wall = time.perf_counter()
-    run_chain(frame_step, frames, state0, config, uniforms_dev, cam)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t_wall
+    # ---- 6. timing (warm passes) ----
+    fps = []
+    for _ in range(N_TIMED_PASSES):
+        torch.cuda.synchronize()
+        t_wall = time.perf_counter()
+        run_chain(frame_step, frames, state0, config, uniforms_dev, cam)
+        torch.cuda.synchronize()
+        fps.append(N_FRAMES / (time.perf_counter() - t_wall))
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
     a.record()
@@ -307,23 +770,50 @@ def main():
     b.record()
     b.synchronize()
     front_ms = a.elapsed_time(b) / N_FRAMES
-    frame_ms = 1000.0 * wall / N_FRAMES
-    print(f"timing: {N_FRAMES / wall:.3f} frames/s ({frame_ms:.3f} ms/frame)"
+    frame_ms = 1000.0 / statistics.median(fps)
+    print(f"timing: {N_TIMED_PASSES} warm passes of {N_FRAMES} frames: "
+          f"{', '.join(f'{f:.3f}' for f in fps)} frames/s (median "
+          f"{statistics.median(fps):.3f}, {frame_ms:.3f} ms/frame)"
           f"; make_frame {front_ms:.4f} ms/frame, rest "
           f"{frame_ms - front_ms:.3f} ms/frame  [{card}]")
+    del frames, outs, state0, sm
 
-    kernel_ms = sum(r[2] for r in rows)
-    plain_ms = sum(r[3] for r in rows)
-    print(json.dumps({"kernels": [{
-        "name": "fast_detect",
-        "route": "cuda",
-        "source": "visualslam_android_tpu_torch/csrc/fast.cu",
-        "replaces": "visualslam_android_tpu/ops/fast_pallas.py:50",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-    }]}))
+    # ---- 7. the stereo bootstrap, then tracking on its map ----
+    (b_config, b_cam, b_frames, trails, second, init,
+     boot_launches) = phase_bootstrap(device, fast, bootstrap, frame_step,
+                                      tracker, fixtures, synthetic, cam_ops)
+
+    # ---- 8. bootstrap: card vs CPU ----
+    phase_bootstrap_cpu(b_config, b_cam, b_frames, trails, second, init,
+                        bootstrap, frame_step)
+
+    one_frame_ms = sum(r[2] for r in rows)
+    one_frame_plain = sum(r[3] for r in rows)
+    source = "visualslam_android_tpu_torch/csrc/fast.cu"
+    replaces = "visualslam_android_tpu/ops/fast_pallas.py:50"
+
+    def row(name, **measured):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces,
+                "launches": chain_launches[name] + boot_launches[name],
+                "launches_by_path": {"chain": chain_launches[name],
+                                     "bootstrap": boot_launches[name]},
+                "library_ms": None, **measured}
+
+    print(json.dumps({"kernels": [
+        row("fast_detect", max_abs_err=max_err, ms=one_frame_ms,
+            plain_ms=one_frame_plain, bound_ms=lv_bound, bound_by=lv_by,
+            note="the single-image wrapper: fast_detect_levels' kernel with "
+                 "one level descriptor, one launch per level, times summed "
+                 "over the four levels; on no path since the levels go in "
+                 "one launch, kept for callers with one image"),
+        row("fast_detect_levels", max_abs_err=lv_err, ms=lv_ms,
+            plain_ms=lv_plain, bound_ms=lv_bound, bound_by=lv_by),
+        row("fast_nonmax_levels", max_abs_err=nm["max_abs_err"],
+            differ_from_unfused=nm["differ_from_unfused"],
+            near_tie_pixels=nm["near_tie_pixels"], ms=nm["ms"],
+            plain_ms=nm["plain_ms"], bound_ms=nm_bound, bound_by=nm_by),
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count(),

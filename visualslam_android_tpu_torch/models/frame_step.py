@@ -8,6 +8,11 @@ motion-model update, inlier/outlier bookkeeping, HandleBadPoints
 (jni/MapMaker.cc:140-164) and the quality / keyframe tests. The stats
 vector carries every scalar a host control loop reads, so the host reads
 the device once per frame.
+
+Also the bootstrap-phase stages of the same JAX module:
+``bootstrap_frontend`` (MakeKeyFrame_Lite + SBI), ``trail_advance_step``
+(TrailTracking_Advance, jni/Tracker.cc:294-346) and ``init_points_step``
+(InitFromStereo's point building, jni/MapMaker.cc:262-339).
 """
 
 from __future__ import annotations
@@ -20,7 +25,14 @@ from visualslam_android_tpu_torch.config import SLAMConfig
 from visualslam_android_tpu_torch.models import keyframe as kf_mod
 from visualslam_android_tpu_torch.models import mapmaker
 from visualslam_android_tpu_torch.models import tracker as tracker_mod
-from visualslam_android_tpu_torch.models.map_store import FrameData, SLAMMap
+from visualslam_android_tpu_torch.models import triangulate
+from visualslam_android_tpu_torch.models.map_store import (
+    SRC_TRAIL,
+    FrameData,
+    SLAMMap,
+)
+from visualslam_android_tpu_torch.ops import camera as cam_ops
+from visualslam_android_tpu_torch.ops import match
 from visualslam_android_tpu_torch.ops import sbi as sbi_ops
 from visualslam_android_tpu_torch.utils.tensors import TensorTree
 
@@ -147,3 +159,81 @@ def frame_step(img, slam_map: SLAMMap, cam, R, t, velocity, msd, depth_mean,
         search_level=out.search_level, did_subpix=out.did_subpix,
         new_points=new_points2, stats=stats,
     )
+
+
+def bootstrap_frontend(img, config: SLAMConfig):
+    """make_frame + make_sbi for a frame of the bootstrap phase, which runs
+    outside frame_step: (FrameData, SBI)."""
+    frame = kf_mod.make_frame(img, config)
+    return frame, sbi_ops.make_sbi(frame.pyramid[-1], config.tracker.sbi_blur)
+
+
+def trail_advance_step(frame: FrameData, prev_frame: FrameData, patches,
+                       cur_pos, valid, config: SLAMConfig):
+    """TrailTracking_Advance (Tracker.cc:294-346): forward MiniPatch search
+    in `frame`, then a backwards search from the match in `prev_frame`
+    that must come back within 2 px^2 of the start (the married-match
+    test). Returns (new_pos [T, 2], good [T], count []); a host loop reads
+    only `count` (the < min_trails reset, Tracker.cc:245-248)."""
+    tc = config.tracker
+    search = dict(search_range=tc.trail_search_range,
+                  half_patch=config.patch.mini_half_patch,
+                  max_ssd=tc.trail_max_ssd)
+    fwd = match.find_minipatch(frame.pyramid[0], frame.corner_mask[0],
+                               patches, cur_pos, valid, **search)
+    back_patches = match.sample_minipatches(
+        frame.pyramid[0], fwd.pos, config.patch.mini_half_patch
+    )
+    bwd = match.find_minipatch(prev_frame.pyramid[0],
+                               prev_frame.corner_mask[0], back_patches,
+                               fwd.pos, valid & fwd.found, **search)
+    d = bwd.pos - cur_pos
+    married = torch.sum(d * d, dim=-1) <= 2.0
+    good = valid & fwd.found & bwd.found & married
+    new_pos = torch.where(good[:, None], fwd.pos, cur_pos)
+    return new_pos, good, torch.sum(good.to(torch.int32))
+
+
+def init_points_step(slam_map: SLAMMap, frame_second: FrameData, m_a, a, b,
+                     valid, R2, t2, cam, config: SLAMConfig):
+    """InitFromStereo's point building (MapMaker.cc:262-339): per-trail
+    subpixel alignment in the second view, two-view triangulation, and
+    packing of the survivors into point slots with SRC_ROOT + SRC_TRAIL
+    measurements. The map holds keyframe 0 at the identity and keyframe 1
+    at (R2, t2); a/b [T, 2] are the trails' first and current level-0
+    positions, m_a the first ones on the z=1 plane. Returns (slam_map,
+    n_ok []): a host loop reads only n_ok (the < 10 abort,
+    MapMaker.cc:313-316)."""
+    cfg = config
+    T = a.shape[0]
+    device = a.device
+    level0 = torch.zeros(T, dtype=torch.int32, device=device)
+    tmpl = match.make_templates_nowarp(
+        slam_map.keyframes.pyramid[0], level0, a, cfg.patch.half_patch_size
+    )
+    sp = match.iterate_subpix(
+        frame_second.pyramid[0], tmpl, b, level0, valid & ~tmpl.bad,
+        max_iters=cfg.patch.subpix_max_iters,
+        half_patch=cfg.patch.half_patch_size,
+        conv_limit=cfg.patch.subpix_converged,
+    )
+    ok = valid & ~tmpl.bad & sp.converged
+    m_b2 = cam_ops.unproject(cam, sp.pos_zero)
+    eye = torch.eye(3, dtype=a.dtype, device=device)
+    pos_w = triangulate.triangulate(
+        eye.expand(T, 3, 3), torch.zeros(T, 3, dtype=a.dtype, device=device),
+        R2.expand(T, 3, 3), t2.expand(T, 3), m_a, m_b2,
+    )
+    ok = ok & (pos_w[:, 2] > 0.0)  # (MapMaker.cc:313-316)
+
+    res = mapmaker.EpipolarResult(success=ok, pos_w=pos_w, src_uv=a,
+                                  target_uv=sp.pos_zero)
+    sm, new_mask = mapmaker.insert_new_points(
+        slam_map, cam, res, 0, 1, 0, cfg.tracker.max_map_points
+    )
+    # The second measurement is a trail match, not an epipolar one
+    # (MapMaker.cc:331).
+    meas = sm.meas
+    fix = new_mask[:, None] & (meas.kf == 1) & meas.valid
+    meas = meas.replace(source=torch.where(fix, SRC_TRAIL, meas.source))
+    return sm.replace(meas=meas), torch.sum(ok.to(torch.int32))

@@ -27,30 +27,26 @@ from visualslam_android_tpu_torch.ops.levels import level_zero_pos
 def make_frame(img, config: SLAMConfig) -> FrameData:
     """MakeKeyFrame_Lite (jni/KeyFrame.cc:5-51): pyramid + dense FAST
     corner masks at the reference's per-level thresholds. Makes one FAST
-    launch per level."""
+    launch for all levels of the frame."""
     tc = config.tracker
-    pyramid = tuple(image.make_pyramid(img.contiguous(), tc.n_levels))
-    masks, scores = [], []
-    for lvl, thresh in zip(pyramid, tc.fast_thresholds):
-        m, s = fast.detect(lvl.contiguous(), int(thresh))
-        masks.append(m)
-        scores.append(s)
-    return FrameData(pyramid=pyramid, corner_mask=tuple(masks),
-                     corner_score=tuple(scores))
+    pyramid = tuple(lvl.contiguous()
+                    for lvl in image.make_pyramid(img, tc.n_levels))
+    masks, scores = fast.detect_levels(pyramid, tc.fast_thresholds)
+    return FrameData(pyramid=pyramid, corner_mask=masks, corner_score=scores)
 
 
 def make_frame_extras(frame: FrameData, config: SLAMConfig) -> FrameExtras:
     """MakeKeyFrame_Rest (jni/KeyFrame.cc:53-101): nonmax corners
-    re-scored with barrier 10 (KeyFrame.cc:62, a second FAST launch per
-    level), Shi-Tomasi candidates (score > 70, border 10), SBI + jacs."""
+    re-scored with barrier 10 (KeyFrame.cc:62; one fused FAST launch for
+    all levels), Shi-Tomasi candidates (score > 70, border 10), SBI +
+    jacs."""
     tc, mc = config.tracker, config.mapmaker
-    nonmax, cand_xy, cand_valid, cand_score = [], [], [], []
-    for lvl_idx, (lvl, cmask) in enumerate(
-        zip(frame.pyramid, frame.corner_mask)
-    ):
-        _, score10 = fast.detect(lvl.contiguous(), 10)
-        kept = fast.nonmax_3x3(cmask, score10)
-        nonmax.append(kept)
+    nonmax = fast.nonmax_levels(
+        tuple(lvl.contiguous() for lvl in frame.pyramid),
+        tuple(cm.contiguous() for cm in frame.corner_mask), 10,
+    )
+    cand_xy, cand_valid, cand_score = [], [], []
+    for lvl_idx, (lvl, kept) in enumerate(zip(frame.pyramid, nonmax)):
         st = image.shi_tomasi_dense(lvl, 3)
         xy, valid = fast.top_k_corners(
             kept & (st > mc.shi_tomasi_threshold), st,
@@ -62,7 +58,7 @@ def make_frame_extras(frame: FrameData, config: SLAMConfig) -> FrameExtras:
         cand_score.append(torch.where(valid, sc, 0.0))
     s = sbi.make_sbi(frame.pyramid[-1], tc.sbi_blur)
     return FrameExtras(
-        nonmax_mask=tuple(nonmax), cand_xy=tuple(cand_xy),
+        nonmax_mask=nonmax, cand_xy=tuple(cand_xy),
         cand_valid=tuple(cand_valid), cand_score=tuple(cand_score),
         sbi_template=s.template, sbi_jacs=s.jacs,
     )

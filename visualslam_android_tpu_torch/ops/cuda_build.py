@@ -4,7 +4,8 @@ Each library is compiled by ``nvcc`` for Hopper (``sm_90a``) with a plain
 C interface and loaded with ``ctypes``; no PyTorch headers are involved, so
 a build takes seconds. Libraries land in ``visualslam_android_tpu_torch/
 _build/`` under a name that carries a hash of the source and flags, so an
-edited source is rebuilt and a stale library is never loaded.
+edited source is rebuilt and a stale library is never loaded; the compiler's output (ptxas resource
+usage) is kept beside it as ``<library>.log``.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",  # registers, shared memory and spills, kept in the log
 )
 
 
@@ -53,6 +55,16 @@ def library_path(source: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{stem}_{digest.hexdigest()[:16]}.so")
 
 
+def build_log(source: str) -> str:
+    """What the compiler printed when csrc/<source> was built (ptxas's
+    resource usage per kernel); empty if the library is not built yet."""
+    try:
+        with open(library_path(source) + ".log") as f:
+            return f.read()
+    except FileNotFoundError:
+        return ""
+
+
 def build(source: str) -> str:
     """Compile csrc/<source> unless its library exists; returns the path."""
     out = library_path(source)
@@ -72,6 +84,8 @@ def build(source: str) -> str:
                 f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
                 f"{proc.stdout}{proc.stderr}"
             )
+        with open(out + ".log", "w") as f:
+            f.write(proc.stdout + proc.stderr)
         os.replace(tmp, out)
     finally:
         if os.path.exists(tmp):

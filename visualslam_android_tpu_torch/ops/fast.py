@@ -1,5 +1,6 @@
-"""FAST corner detection: segment test + score (CUDA kernel on the GPU),
-non-max suppression and top-k candidate selection.
+"""FAST corner detection: segment test + score and the keyframe's fused
+rescore + non-max suppression (CUDA kernels on the GPU), and top-k
+candidate selection.
 
 Port of the JAX package's ``ops/fast.py`` and its Pallas kernel
 ``ops/fast_pallas.py``: FAST-10 as the reference uses it
@@ -7,10 +8,19 @@ Port of the JAX package's ``ops/fast.py`` and its Pallas kernel
 FAST-9 with ``arc_length=9``, the old-style score (cvfast.cpp:9337-9369)
 and 3x3 non-max suppression (cvfast.cpp:9243-9335).
 
-``detect`` launches the hand-written kernel ``csrc/fast.cu`` for a tensor
-on a CUDA device, and runs ``detect_reference`` (plain PyTorch, the
-counterpart of the JAX package's ``_detect_jnp``) for a tensor on the CPU.
-There is no other path: on the GPU the kernel launches or ``detect``
+Three wrappers launch the two hand-written kernels of ``csrc/fast.cu`` for
+tensors on a CUDA device:
+
+- ``detect_levels``: all pyramid levels of a frame in one launch
+  (``make_frame``); plain version ``detect_reference`` per level;
+- ``detect``: one image, the same kernel with one level descriptor;
+- ``nonmax_levels``: the barrier-10 rescore fused with the 3x3 non-max
+  suppression on all levels in one launch (``make_frame_extras``); plain
+  version ``nonmax_levels_reference``.
+
+For tensors on the CPU each wrapper runs its plain PyTorch version (the
+counterpart of the JAX package's ``_detect_jnp`` and ``nonmax_3x3``).
+There is no other path: on the GPU a kernel launches or the wrapper
 raises.
 """
 
@@ -31,31 +41,103 @@ RING_OFFSETS = (
     (0, -3), (-1, -3), (-2, -2), (-3, -1), (-3, 0), (-3, 1), (-2, 2), (-1, 3),
 )
 
-# Launches of the CUDA kernel in this process (incremented by `detect` on
-# every successful launch, and nowhere else).
-KERNEL_LAUNCHES = 0
+# Kernel launches in this process, by wrapper: each wrapper adds one where
+# it has launched its kernel, and nowhere else.
+LAUNCHES = {"fast_detect": 0, "fast_detect_levels": 0,
+            "fast_nonmax_levels": 0}
+
+# Levels one launch takes (kMaxLevels in csrc/fast.cu); longer pyramids go
+# in several launches.
+MAX_LEVELS = 4
 
 _SOURCE = "fast.cu"
+
+
+class _DetectArg(ctypes.Structure):
+    """FastDetectArg of csrc/fast.cu."""
+
+    _fields_ = [("img", ctypes.c_void_p), ("mask", ctypes.c_void_p),
+                ("score", ctypes.c_void_p), ("H", ctypes.c_int),
+                ("W", ctypes.c_int), ("threshold", ctypes.c_float)]
+
+
+class _NonmaxArg(ctypes.Structure):
+    """FastNonmaxArg of csrc/fast.cu."""
+
+    _fields_ = [("img", ctypes.c_void_p), ("corner", ctypes.c_void_p),
+                ("out", ctypes.c_void_p), ("H", ctypes.c_int),
+                ("W", ctypes.c_int)]
 
 
 @functools.lru_cache(maxsize=None)
 def _library():
     lib = cuda_build.load(_SOURCE)
-    fn = lib.fast_detect
-    fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # img, mask, score
-        ctypes.c_int, ctypes.c_int,                          # H, W
-        ctypes.c_float, ctypes.c_int,                        # threshold, arc
-        ctypes.c_void_p,                                     # stream
+    lib.fast_detect_levels.argtypes = [
+        ctypes.POINTER(_DetectArg), ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p,
     ]
-    fn.restype = ctypes.c_int
-    return fn
+    lib.fast_detect_levels.restype = ctypes.c_int
+    lib.fast_nonmax_levels.argtypes = [
+        ctypes.POINTER(_NonmaxArg), ctypes.c_int, ctypes.c_float,
+        ctypes.c_void_p,
+    ]
+    lib.fast_nonmax_levels.restype = ctypes.c_int
+    return lib
 
 
 def build_kernel() -> str:
-    """Compile the kernel now (it is otherwise built at first launch);
+    """Compile the kernels now (they are otherwise built at first launch);
     returns the library path."""
     return cuda_build.build(_SOURCE)
+
+
+def _check_image(img, what):
+    if img.dtype != torch.float32 or img.dim() != 2 or img.numel() == 0:
+        raise ValueError(f"{what} takes non-empty 2-D float32 images, got "
+                         f"{img.dtype} {tuple(img.shape)}")
+    if not img.is_contiguous():
+        raise ValueError(f"{what} takes contiguous images")
+
+
+def _check_arc(arc_length):
+    if not 9 <= arc_length <= 16:
+        raise ValueError(f"arc_length must be in 9..16, got {arc_length}")
+
+
+def _device_of(tensors, what):
+    """'cpu' or 'cuda'; every tensor must lie on the same device."""
+    device = tensors[0].device
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what} runs on cpu or cuda, got {device}")
+    if any(t.device != device for t in tensors):
+        raise ValueError(f"{what} takes tensors of one device")
+    return device
+
+
+def _raise_on(err, name):
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
+
+
+def _level_views(buf, levels):
+    """Views of the flat buffer `buf`, one per level, in the levels'
+    shapes."""
+    parts = torch.split(buf, [lvl.numel() for lvl in levels])
+    return tuple(part.view(lvl.shape) for part, lvl in zip(parts, levels))
+
+
+def _launch_levels(name, arg_type, rows, scalar, device, count=None):
+    """Launch the library's `name` on the current stream over `rows` (the
+    fields of one `arg_type` per level), MAX_LEVELS levels per launch, and
+    count each launch under `count` (default: `name`)."""
+    fn = getattr(_library(), name)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        for i in range(0, len(rows), MAX_LEVELS):
+            chunk = rows[i:i + MAX_LEVELS]
+            args = (arg_type * len(chunk))(*[arg_type(*r) for r in chunk])
+            _raise_on(fn(args, len(chunk), scalar, stream), name)
+            LAUNCHES[count or name] += 1
 
 
 def detect(img, threshold, arc_length: int = 10):
@@ -67,32 +149,99 @@ def detect(img, threshold, arc_length: int = 10):
     at the same threshold. CUDA tensors go through the kernel, CPU tensors
     through detect_reference.
     """
-    if img.dtype != torch.float32 or img.dim() != 2:
-        raise ValueError(
-            f"detect takes a 2-D float32 image, got {img.dtype} {tuple(img.shape)}"
-        )
-    if not img.is_contiguous():
-        raise ValueError("detect takes a contiguous image")
-    if not 9 <= arc_length <= 16:
-        raise ValueError(f"arc_length must be in 9..16, got {arc_length}")
-    if img.device.type == "cpu":
+    _check_image(img, "detect")
+    _check_arc(arc_length)
+    device = _device_of([img], "detect")
+    if device.type == "cpu":
         return detect_reference(img, threshold, arc_length)
-    if img.device.type != "cuda":
-        raise ValueError(f"detect runs on cpu or cuda, got {img.device}")
 
-    global KERNEL_LAUNCHES
-    H, W = img.shape
-    mask = torch.empty((H, W), dtype=torch.bool, device=img.device)
-    score = torch.empty((H, W), dtype=torch.float32, device=img.device)
-    fn = _library()
-    with torch.cuda.device(img.device):
-        stream = torch.cuda.current_stream(img.device).cuda_stream
-        err = fn(img.data_ptr(), mask.data_ptr(), score.data_ptr(), H, W,
-                 float(threshold), int(arc_length), stream)
-    if err != 0:
-        raise RuntimeError(f"fast_detect launch failed: cudaError_t {err}")
-    KERNEL_LAUNCHES += 1
-    return mask, score
+    masks, scores = _detect_levels_cuda([img], [threshold], arc_length,
+                                        device, count="fast_detect")
+    return masks[0], scores[0]
+
+
+def detect_levels(levels, thresholds, arc_length: int = 10):
+    """`detect` on every level of a pyramid with its own threshold:
+    (masks, scores), tuples over levels. On a CUDA device all levels (up
+    to MAX_LEVELS) go in ONE launch; the masks are views into one buffer,
+    and so are the scores."""
+    levels = list(levels)
+    thresholds = list(thresholds)
+    if not levels or len(levels) != len(thresholds):
+        raise ValueError("detect_levels takes one threshold per level")
+    for lvl in levels:
+        _check_image(lvl, "detect_levels")
+    _check_arc(arc_length)
+    device = _device_of(levels, "detect_levels")
+    if device.type == "cpu":
+        out = [detect_reference(lvl, t, arc_length)
+               for lvl, t in zip(levels, thresholds)]
+        return tuple(m for m, _ in out), tuple(s for _, s in out)
+
+    return _detect_levels_cuda(levels, thresholds, arc_length, device,
+                               count="fast_detect_levels")
+
+
+def _detect_levels_cuda(levels, thresholds, arc_length, device, count):
+    """The detect kernel on CUDA levels, its launches counted under
+    `count`: (masks, scores), views into one buffer each."""
+    n_pixels = sum(lvl.numel() for lvl in levels)
+    masks = _level_views(
+        torch.empty(n_pixels, dtype=torch.bool, device=device), levels)
+    scores = _level_views(
+        torch.empty(n_pixels, dtype=torch.float32, device=device), levels)
+    _launch_levels(
+        "fast_detect_levels", _DetectArg,
+        [(lvl.data_ptr(), m.data_ptr(), s.data_ptr(), *lvl.shape, float(t))
+         for lvl, m, s, t in zip(levels, masks, scores, thresholds)],
+        int(arc_length), device, count=count,
+    )
+    return masks, scores
+
+
+def nonmax_levels(levels, corner_masks, barrier=10):
+    """The keyframe's corner thinning on every level: the old-style score
+    at `barrier` (KeyFrame.cc:62) and 3x3 non-max suppression among the
+    corners of `corner_masks`, i.e. ``nonmax_3x3(cmask, detect(lvl,
+    barrier)[1])`` per level, as a tuple of bool masks. On a CUDA device
+    one fused launch covers all levels (up to MAX_LEVELS) and writes only
+    the masks; on the CPU it is nonmax_levels_reference."""
+    levels = list(levels)
+    corner_masks = list(corner_masks)
+    if not levels or len(levels) != len(corner_masks):
+        raise ValueError("nonmax_levels takes one corner mask per level")
+    for lvl, cm in zip(levels, corner_masks):
+        _check_image(lvl, "nonmax_levels")
+        if (cm.dtype != torch.bool or cm.shape != lvl.shape
+                or not cm.is_contiguous()):
+            raise ValueError(
+                "nonmax_levels takes a contiguous bool corner mask of each "
+                f"level's shape, got {cm.dtype} {tuple(cm.shape)} for "
+                f"{tuple(lvl.shape)}"
+            )
+    device = _device_of(levels + corner_masks, "nonmax_levels")
+    if device.type == "cpu":
+        return nonmax_levels_reference(levels, corner_masks, barrier)
+
+    outs = _level_views(
+        torch.empty(sum(lvl.numel() for lvl in levels), dtype=torch.bool,
+                    device=device), levels)
+    _launch_levels(
+        "fast_nonmax_levels", _NonmaxArg,
+        [(lvl.data_ptr(), cm.data_ptr(), o.data_ptr(), *lvl.shape)
+         for lvl, cm, o in zip(levels, corner_masks, outs)],
+        float(barrier), device,
+    )
+    return outs
+
+
+def nonmax_levels_reference(levels, corner_masks, barrier=10):
+    """Plain PyTorch nonmax_levels: a full detect_reference at `barrier`
+    for the score map, then nonmax_3x3, per level."""
+    return tuple(
+        nonmax_3x3(cm, detect_reference(lvl, barrier)[1])
+        for lvl, cm in zip(levels, corner_masks)
+    )
 
 
 def _ring_stack(img):

@@ -1,5 +1,6 @@
 """Dense image ops: pyramid, bilinear sampling, Shi-Tomasi scoring,
-Gaussian blur, and per-point gathers from pyramid levels.
+Gaussian blur, integer-centered patches, and per-point gathers from
+pyramid levels.
 
 Port of the JAX package's ``ops/image.py`` (the reference's
 jni/vision/ImageHandler.cpp and the pyramid of jni/KeyFrame.cc:20-23).
@@ -122,6 +123,29 @@ def gaussian_blur(img, sigma: float, truncate: float = 3.0):
         return img
     radius = max(1, int(truncate * sigma + 0.5))
     return separable_blur(img, blur_kernel(sigma, radius, img))
+
+
+def extract_window(img, center_xy, half_size):
+    """Axis-aligned integer-centered windows as one direct gather, with
+    their top-left corners: (windows [..., n, n], top_left [..., 2]),
+    n = 2 * half_size + 1, for centers center_xy [..., 2] (truncated to
+    integers). The window origin is clamped into the image, so a center
+    closer than half_size to the border reads a shifted window (callers
+    mask)."""
+    n = 2 * half_size + 1
+    H, W = img.shape[-2:]
+    c = center_xy.long()
+    x0 = torch.clamp(c[..., 0] - half_size, 0, W - n)
+    y0 = torch.clamp(c[..., 1] - half_size, 0, H - n)
+    r = torch.arange(n, device=img.device)
+    win = img[(y0[..., None, None] + r[:, None]),
+              (x0[..., None, None] + r[None, :])]
+    return win, torch.stack([x0, y0], dim=-1)
+
+
+def extract_patch(img, center_xy, half_size):
+    """extract_window without the corners: [..., n, n]."""
+    return extract_window(img, center_xy, half_size)[0]
 
 
 # ---------------------------------------------------------------------------

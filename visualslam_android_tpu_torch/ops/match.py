@@ -10,7 +10,9 @@ runs (the reference's ``PatchFinder``, jni/PatchFinder.{h,cc}):
    and inverse-composition Hessians (:153-166, :242-267);
 3. coarse ZMSSD search over FAST corners within a radius
    (FindPatchCoarse :170-235; max SSD = 500 * patch_px);
-4. subpixel iteration (IterateSubPixToConvergence :272-350).
+4. subpixel iteration (IterateSubPixToConvergence :272-350);
+5. for the bootstrap: unwarped templates (MakeTemplateCoarseNoWarp
+   :130-148) and the MiniPatch trail search (jni/MiniPatch.cc).
 
 Every stage runs over all points at once, with per-point search levels
 handled by gathers from a flattened pyramid (``image.flatten_levels``).
@@ -158,6 +160,25 @@ def make_templates_warped_multilevel(source_pyramids, source_kf,
     return _finalize_templates(data, bad)
 
 
+def make_templates_nowarp(source_imgs, source_kf, source_center,
+                          half_patch=5) -> Templates:
+    """Batched MakeTemplateCoarseNoWarp (PatchFinder.cc:130-148): plain
+    axis-aligned patch copy at integer source positions. source_imgs
+    [K, H, W] keyframe stack of one level; source_kf [N]; source_center
+    [N, 2] in that level's coords, rounded. Reads clamp to the image; a
+    patch closer than half_patch + 1 to the border is marked bad."""
+    H, W = source_imgs.shape[-2:]
+    c = torch.round(source_center).long()
+    cx, cy = c[:, 0], c[:, 1]
+    bad = ~((cx >= half_patch + 1) & (cy >= half_patch + 1)
+            & (cx < W - half_patch - 1) & (cy < H - half_patch - 1))
+    r = torch.arange(-half_patch, half_patch + 1, device=source_imgs.device)
+    xs = torch.clamp(cx[:, None, None] + r[None, None, :], 0, W - 1)
+    ys = torch.clamp(cy[:, None, None] + r[None, :, None], 0, H - 1)
+    data = source_imgs[source_kf.long()[:, None, None], ys, xs]
+    return _finalize_templates(data, bad)
+
+
 @dataclasses.dataclass(frozen=True)
 class CoarseResult(TensorTree):
     found: torch.Tensor      # [N] bool
@@ -248,28 +269,20 @@ class SubpixResult(TensorTree):
     pos_zero: torch.Tensor   # [N, 2] refined position, LEVEL-0 coords
 
 
-def iterate_subpix_multilevel(pyramid, templates: Templates, pos_zero,
-                              search_level, active, max_iters: int = 10,
-                              half_patch: int = 5,
-                              conv_limit: float = 0.03) -> SubpixResult:
-    """IterateSubPixToConvergence (PatchFinder.cc:272-350) over all search
-    levels in one pass: a fixed number of inverse-composition iterations
-    with per-point converged / failed masks. Updates are scaled back by
-    the level scale as in the reference (:339)."""
-    P = 2 * half_patch + 1
+def _subpix_loop(stack, lv, hw, scale, templates: Templates, pos_zero,
+                 active, max_iters, half_patch, conv_limit) -> SubpixResult:
+    """The inverse-composition iterations shared by iterate_subpix and
+    iterate_subpix_multilevel. stack: image.flatten_levels output; lv
+    [N, 1] each point's level in it; hw [N, 2] that level's (H, W);
+    scale [N, 1] level-0 pixels per pixel of the point's level."""
     N = pos_zero.shape[0]
     dtype, device = pos_zero.dtype, pos_zero.device
-    level = search_level.long()
-    scale = (2.0 ** search_level.to(dtype))[:, None]
-    stack = img_ops.flatten_levels(pyramid)
-    hw = stack[2][level]  # [N, 2] (H, W)
     center0 = (pos_zero + 0.5) / scale - 0.5
 
     inner = img_ops.patch_grid(half_patch - 1, device, dtype)
     gx = templates.grad_x.reshape(N, -1)
     gy = templates.grad_y.reshape(N, -1)
     tmpl_inner = templates.data[:, 1:-1, 1:-1].reshape(N, -1)
-    lv = level[:, None]
 
     pos = pos_zero
     mean_diff = torch.zeros(N, dtype=dtype, device=device)
@@ -304,3 +317,105 @@ def iterate_subpix_multilevel(pyramid, templates: Templates, pos_zero,
         upd_sq = torch.sum(update[:, :2] ** 2, dim=-1)
         converged = converged | (live & (upd_sq < conv_limit * conv_limit))
     return SubpixResult(converged=converged & ~failed, pos_zero=pos)
+
+
+def iterate_subpix_multilevel(pyramid, templates: Templates, pos_zero,
+                              search_level, active, max_iters: int = 10,
+                              half_patch: int = 5,
+                              conv_limit: float = 0.03) -> SubpixResult:
+    """IterateSubPixToConvergence (PatchFinder.cc:272-350) over all search
+    levels in one pass: a fixed number of inverse-composition iterations
+    with per-point converged / failed masks. Updates are scaled back by
+    the level scale as in the reference (:339)."""
+    level = search_level.long()
+    scale = (2.0 ** search_level.to(pos_zero.dtype))[:, None]
+    stack = img_ops.flatten_levels(pyramid)
+    return _subpix_loop(stack, level[:, None], stack[2][level], scale,
+                        templates, pos_zero, active, max_iters, half_patch,
+                        conv_limit)
+
+
+def iterate_subpix(img, templates: Templates, pos_zero, search_level, active,
+                   max_iters: int = 10, half_patch: int = 5,
+                   conv_limit: float = 0.03) -> SubpixResult:
+    """IterateSubPixToConvergence on ONE pyramid level image `img`;
+    search_level [N] only sets the scale between pos_zero (level-0
+    coords) and `img`'s pixels."""
+    N = pos_zero.shape[0]
+    scale = (2.0 ** search_level.to(pos_zero.dtype))[:, None]
+    stack = img_ops.flatten_levels((img,))
+    lv = torch.zeros(N, 1, dtype=torch.long, device=pos_zero.device)
+    return _subpix_loop(stack, lv, stack[2][lv[:, 0]], scale, templates,
+                        pos_zero, active, max_iters, half_patch, conv_limit)
+
+
+# ---------------------------------------------------------------------------
+# MiniPatch: unwarped 9x9 SSD tracker for the bootstrap trails
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class MiniPatchResult(TensorTree):
+    found: torch.Tensor  # [N] bool
+    pos: torch.Tensor    # [N, 2] best corner; meaningful where found
+
+
+def find_minipatch(img, corner_mask, patches, pos, active,
+                   search_range: int = 10, half_patch: int = 4,
+                   max_ssd: int = 100000) -> MiniPatchResult:
+    """Batched MiniPatch::FindPatch (jni/MiniPatch.cc:32-70): plain SSD of
+    patches [N, P, P] over the FAST corners in a SQUARE box of radius
+    search_range around pos [N, 2] (level-0 coords) whose patch lies inside
+    the image. max_ssd defaults to the tracker's trail override
+    (jni/Tracker.cc:226-227).
+
+    Each trail reads a direct window of side 2 * (search_range +
+    half_patch) + 1 around round(pos) and takes the squared difference at
+    every offset (an unfold and a subtraction: no convolution, so nothing
+    can run in TF32). Candidates scan row-major in image coordinates and
+    the first minimum wins, as in the JAX package; where nothing is found,
+    `pos` is the window's first candidate and means nothing."""
+    N = patches.shape[0]
+    P = 2 * half_patch + 1
+    H, W = img.shape
+    dtype, device = img.dtype, img.device
+    win_half = search_range + half_patch
+    Wn = 2 * win_half + 1
+    n_off = Wn - P + 1
+
+    origin = torch.round(pos).long() - win_half  # [N, 2]
+    r = torch.arange(Wn, device=device)
+    xs = origin[:, 0, None, None] + r[None, None, :]
+    ys = origin[:, 1, None, None] + r[None, :, None]
+    inside = (xs >= 0) & (ys >= 0) & (xs < W) & (ys < H)
+    xc, yc = torch.clamp(xs, 0, W - 1), torch.clamp(ys, 0, H - 1)
+    windows = torch.where(inside, img[yc, xc], 0.0)  # [N, Wn, Wn]
+
+    cols = F.unfold(windows[:, None], P)  # [N, P*P, n_off*n_off]
+    d = cols - patches.reshape(N, P * P, 1)
+    ssd = torch.sum(d * d, dim=1)  # [N, n_off*n_off]
+
+    o = torch.arange(n_off, device=device)
+    cx = origin[:, 0, None, None] + o[None, None, :] + half_patch
+    cy = origin[:, 1, None, None] + o[None, :, None] + half_patch
+    in_img = ((cx >= half_patch) & (cy >= half_patch)
+              & (cx < W - half_patch) & (cy < H - half_patch))
+    is_corner = corner_mask[torch.clamp(cy, 0, H - 1),
+                            torch.clamp(cx, 0, W - 1)]
+    dx = torch.abs(cx.to(dtype) - pos[:, 0, None, None])
+    dy = torch.abs(cy.to(dtype) - pos[:, 1, None, None])
+    in_box = torch.maximum(dx, dy) <= search_range  # square, not circle
+    valid = is_corner & in_box & in_img & active[:, None, None]
+
+    ssd_m = torch.where(valid.reshape(N, -1), ssd, torch.inf)
+    best_ssd, best = torch.min(ssd_m, dim=-1)
+    bx = origin[:, 0] + best % n_off + half_patch
+    by = origin[:, 1] + best // n_off + half_patch
+    return MiniPatchResult(found=best_ssd < max_ssd,
+                           pos=torch.stack([bx, by], dim=-1).to(dtype))
+
+
+def sample_minipatches(img, pos, half_patch=4):
+    """Batched MiniPatch::SampleFromImage (jni/MiniPatch.cc:73-83):
+    integer-centered patches [N, P, P] at pos [N, 2]."""
+    return img_ops.extract_patch(img, pos, half_patch)

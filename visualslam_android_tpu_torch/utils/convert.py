@@ -15,8 +15,11 @@ import dataclasses
 import numpy as np
 import torch
 
+from visualslam_android_tpu_torch.models.bootstrap import TrailState
+from visualslam_android_tpu_torch.models.homography import HomographyResult
 from visualslam_android_tpu_torch.models.map_store import (
     FrameData,
+    FrameExtras,
     KeyFrameStore,
     MeasStore,
     PointStore,
@@ -56,3 +59,24 @@ def sbi_from_numpy(tree, device="cpu") -> SBI:
 
 def frame_from_numpy(tree, device="cpu") -> FrameData:
     return _convert(FrameData, tree, device)
+
+
+def extras_from_numpy(tree, device="cpu") -> FrameExtras:
+    return _convert(FrameExtras, tree, device)
+
+
+def homography_from_numpy(tree, device="cpu") -> HomographyResult:
+    return _convert(HomographyResult, tree, device)
+
+
+def trails_from_numpy(frame, extras, patches, init_pos, cur_pos, valid,
+                      device="cpu") -> TrailState:
+    """The bootstrap trail state, which the JAX package keeps as attributes
+    of its SLAMSystem (_trail_first, _trail_patches, _trail_init_pos,
+    _trail_cur_pos, _trail_valid)."""
+    return TrailState(
+        frame=frame_from_numpy(frame, device),
+        extras=extras_from_numpy(extras, device),
+        patches=_tensor(patches, device), init_pos=_tensor(init_pos, device),
+        cur_pos=_tensor(cur_pos, device), valid=_tensor(valid, device),
+    )

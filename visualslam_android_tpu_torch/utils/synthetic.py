@@ -16,6 +16,7 @@ import torch
 
 from visualslam_android_tpu_torch.ops import camera as cam_ops
 from visualslam_android_tpu_torch.ops import image as img_ops
+from visualslam_android_tpu_torch.ops import lie
 from visualslam_android_tpu_torch.utils.tensors import TensorTree
 
 
@@ -104,3 +105,16 @@ def look_at_pose(position, target=(0.0, 0.0, 4.0), up=(0.0, -1.0, 0.0),
     t = -R @ pos
     return (torch.tensor(R, dtype=torch.float32, device=device),
             torch.tensor(t, dtype=torch.float32, device=device))
+
+
+def sideways_pose(R0, t0, s):
+    """Pose at parameter s (0 at the start, 1 at the end) of the bootstrap
+    camera path: a sideways translation of 0.55 m with a slight pan and
+    rise, composed on (R0, t0). A good homography baseline over a plane
+    4 m away."""
+    mu = torch.tensor(
+        [0.55 * s, 0.08 * np.sin(2 * s), 0.05 * s, 0.0, 0.12 * s, 0.0],
+        dtype=R0.dtype, device=R0.device,
+    )
+    dR, dt = lie.se3_exp(mu)
+    return lie.se3_mul(dR, dt, R0, t0)
