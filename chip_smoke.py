@@ -4,10 +4,12 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-It drives the port's two main paths at the reference's full size (800x480
-frames, a 2048-slot map) and checks them: the per-frame tracking step on a
-fixture map, and the stereo bootstrap that builds a map from a sideways
-camera motion and then tracks on it.
+It drives the port's main paths at the reference's full size (800x480
+frames, a 2048-slot map, 32 keyframe slots) and checks them: the per-frame
+tracking step on a fixture map; the stereo bootstrap that builds a map from
+a sideways camera motion (trails, homography, triangulation, bundle
+adjustment, epipolar growth, plane alignment) and then tracks on it; and
+bundle adjustment at the map's full capacities.
 
 1. device: requires CUDA; prints the card's name and power limit;
 2. build: compiles the CUDA kernels (csrc/fast.cu) with nvcc and prints
@@ -36,25 +38,40 @@ camera motion and then tracks on it.
 6. timing: three warm passes over the 100 frames (frames/s and their
    range), and the split between the front-end (make_frame) and the rest;
 7. bootstrap: renders a 29-frame sideways path on the card; trail_start on
-   frame 0, trail_advance over frames 1..6, init_from_stereo on frame 6,
-   then frame_step over the 22 remaining frames on the map it built. At
-   least 200 trails must survive, the homography must succeed and recover
-   the rendered motion (rotation within 0.01 rad, translation direction
-   within 3 degrees), at least 100 points must triangulate in front of the
-   camera and lie on z = 0 after the plane alignment, every tracked frame
-   must find more than 50 points with quality not BAD and follow the
-   rendered motion, and the path must launch fast_detect_levels once per
-   frame and fast_nonmax_levels once per keyframe, and nothing through
-   the single-image wrapper, which no path runs since the levels go in one
-   launch. The three heavy stages of init_from_stereo are timed from here
-   (synchronised host clock around each);
+   frame 0, trail_advance over frames 1..6, the full init_from_stereo on
+   frame 6 (5 rounds of global bundle adjustment, epipolar growth at levels
+   0, 3, 1, 2, bundle adjustment until it converges), then frame_step over
+   the 22 remaining frames on the map it built. At least 200 trails must
+   survive, the homography must succeed and recover the rendered motion
+   (rotation within 0.01 rad, translation direction within 3 degrees), at
+   least 100 points must triangulate; the reprojection rms must fall over
+   the 5 rounds; the growths must add points at each of levels 0-3; every
+   pose and point must be finite, every live point in the prefix the
+   bundle adjustment runs on and in front of keyframe 0, and on z = 0 after
+   the plane alignment; the last rounds must converge within 4; every
+   tracked frame must be GOOD and follow the rendered motion; and the path
+   must launch fast_detect_levels once per frame and fast_nonmax_levels
+   once per keyframe, and nothing through the single-image wrapper. The
+   stages of init_from_stereo are timed from here (synchronised host clock
+   around each), and the device-to-host reads of each round are counted;
 8. bootstrap card vs CPU: the same frames and the same MLESAC and
    plane-RANSAC draws through the plain path on the CPU: (R2, t2) within
-   1e-3, n_ok within 2%, common points within 1e-3.
+   1e-3, n_ok within 2%; after bundle adjustment and growth, by outcome:
+   point count within 5%, rms within 10%, keyframe 1's pose within 5e-3.
+   The card's run is the second in the process: its stage times are the
+   warm ones, with the growth split by level into thinning, corner list,
+   ZMSSD, subpixel and triangulation;
+9. bundle adjustment at full state size: a problem made from a seed with
+   numpy at the map's capacities (32 cameras, one fixed; 2048 points; up to
+   16 observations each; 0.3 px of noise; 5% of the measurements moved by
+   30-60 px): bundle_adjust(max_iters=20) on the card must bring the rms
+   to the noise level and eject the moved measurements, and agree with the
+   same run on the CPU by objective and rms; one LM iteration is timed by
+   stage with CUDA events.
 
 Any failed check raises and the script exits non-zero. The last two lines
 of standard output are a JSON object describing the kernels (`launches`
-is the sum over phases 4 and 7, `launches_by_path` gives each) and the
+is the sum over phases 4, 7 and 9, `launches_by_path` gives each) and the
 ``{"ok": true, "device": ...}`` line. It imports no jax.
 """
 
@@ -95,6 +112,21 @@ N_TRACK_FRAMES = 22
 # than the fixture map's.
 BOOT_TRACK_R_ERR = 0.02  # rad
 BOOT_TRACK_T_ERR = 0.02  # map units
+# The finished bootstrap against the same run on the CPU, by outcome (the
+# accept tests of ~130 LM iterations may fall differently on the two
+# devices; see tests/test_torch_bundle.py).
+BOOT_POINTS_AGREE = 0.05   # relative difference of the point counts
+BOOT_RMS_AGREE = 0.10      # relative difference of the final rms
+BOOT_POSE_ATOL = 5e-3      # keyframe 1 (R entries, t in map units)
+# The full-size bundle adjustment: noise 0.3 px per axis gives an rms of
+# 0.42 px; the run must end below BA_RMS_AFTER from above BA_RMS_BEFORE.
+BA_SEED = 5
+BA_NOISE_PX = 0.3
+BA_OUTLIER_SHARE = 0.05
+BA_RMS_BEFORE = 2.0
+BA_RMS_AFTER = 0.6
+BA_EJECTED_SHARE = 0.95    # of the moved measurements
+BA_AGREE = 0.02            # card vs CPU: objective and rms, relative
 # Published peaks of one H100 SXM: HBM3 rate and f32 rate outside the tensor
 # cores.
 H100_BYTES_PER_S = 3.35e12
@@ -435,8 +467,42 @@ def points_by_source(slam_map):
     return {tuple(c): p for c, p in zip(center, pos)}
 
 
-def phase_bootstrap(device, fast, bootstrap, frame_step, tracker, fixtures,
-                    synthetic, cam_ops):
+def check_finished_map(init, rec, config, bootstrap):
+    """What bundle adjustment and growth must have done to the map
+    init_from_stereo returns, from the stage record `rec`."""
+    first = rec["rounds"][0]
+    last = rec["rounds"][bootstrap.N_INIT_BA_ROUNDS - 1]
+    check(len(rec["rounds"]) == sum(init.ba_rounds),
+          f"{len(rec['rounds'])} BA rounds timed, {init.ba_rounds} reported")
+    check(last["rms_after"] < first["rms_before"],
+          f"the 5 BA rounds did not lower the rms: {first['rms_before']} -> "
+          f"{last['rms_after']}")
+    check(init.ba_converged and init.ba_rounds[1] <= 4,
+          f"bundle adjustment did not converge in 4 rounds: {init.ba_rounds}")
+    sm = init.slam_map
+    pts, kfs = sm.points, sm.keyframes
+    live = pts.live()
+    check(bool(torch.isfinite(kfs.R).all() and torch.isfinite(kfs.t).all()
+               and torch.isfinite(pts.pos_w[live]).all()),
+          "a pose or a live point is not finite")
+    check(init.n_points > init.n_ok,
+          f"growth added nothing: {init.n_points} points from {init.n_ok} "
+          f"trail points")
+    per_level = [int((live & (pts.source_level == lvl)).sum())
+                 for lvl in range(config.tracker.n_levels)]
+    check(all(n > 0 for n in per_level),
+          f"a pyramid level has no point: {per_level}")
+    n_prefix = bootstrap.init_point_slots(config)
+    check(not bool(live[n_prefix:].any()),
+          f"a live point lies past the first {n_prefix} slots")
+    print(f"bootstrap: {init.n_points} points after growth (levels "
+          f"{per_level}; {init.n_ok} from trails), BA rounds {init.ba_rounds}"
+          f", rms {first['rms_before']:.4f} -> {last['rms_after']:.4f} over "
+          f"the first 5 and {rec['rounds'][-1]['rms_after']:.4f} at the end")
+
+
+def phase_bootstrap(device, card, fast, bootstrap, frame_step, tracker,
+                    fixtures, synthetic, cam_ops):
     """The stereo bootstrap at full width on the card, then tracking on the
     map it built; returns what the card-against-CPU phase compares and the
     launch counts of this path."""
@@ -457,17 +523,20 @@ def phase_bootstrap(device, fast, bootstrap, frame_step, tracker, fixtures,
     t_wall = time.perf_counter()
     trails, second, sbi, counts = run_trails(frames, config, bootstrap,
                                              frame_step)
-    with timed_stages(bootstrap) as stage_ms:
+    with timed_stages(bootstrap) as rec:
         init = bootstrap.init_from_stereo(trails, second, cam, config,
                                           generator=gen)
     torch.cuda.synchronize()
     boot_s = time.perf_counter() - t_wall
     print(f"bootstrap: trails {counts}, ok={init.ok} {init.reason!r}, "
-          f"n_ok {init.n_ok}, points {init.n_points}, {boot_s:.3f} s in all; "
-          f"first-call stage ms {fmt_stages(stage_ms)}")
+          f"n_ok {init.n_ok}, points {init.n_points}, {boot_s:.3f} s in all "
+          f"(stage timers and their rms readings included); first-call "
+          f"stage ms {fmt_stages(rec)}  [{card}]")
+    print_rounds(rec, card)
     check(counts[-1] >= 200, f"only {counts[-1]} trails at the second touch")
     check(init.ok, f"init_from_stereo failed: {init.reason}")
     check(bool(init.homography.success), "homography not successful")
+    check_finished_map(init, rec, config, bootstrap)
 
     R_true, t_true = relative_pose(*poses[0], *poses[N_TRAIL_FRAMES])
     r_err = rot_angle(init.R2, R_true)
@@ -509,14 +578,18 @@ def phase_bootstrap(device, fast, bootstrap, frame_step, tracker, fixtures,
         worst_r = max(worst_r, rot_angle(R_rel, R_want))
         worst_t = max(worst_t, float(torch.linalg.vector_norm(
             t_rel - scale * t_want)))
-    print(f"bootstrap: {len(outs)} frames tracked on the new map: found min "
-          f"{n_found.min():.0f} mean {n_found.mean():.1f}, quality min "
+    share = n_found / init.n_points
+    print(f"bootstrap: {len(outs)} frames tracked on the new map of "
+          f"{init.n_points} points: found min {n_found.min():.0f} mean "
+          f"{n_found.mean():.1f} ({100 * share.min():.1f}%-"
+          f"{100 * share.max():.1f}% of the map; the trail-point map without "
+          f"bundle adjustment and growth gave 75-98% of 861), quality min "
           f"{quality.min():.0f}, motion since keyframe 1 off by at most "
           f"{worst_r:.6f} rad, {worst_t:.6f} map units")
     check(bool(np.all(n_found > 50)),
           f"a frame found <= 50 points on the new map: {n_found.tolist()}")
-    check(bool(np.all(quality != tracker.QUALITY_BAD)),
-          f"a frame tracked BAD on the new map: {quality.tolist()}")
+    check(bool(np.all(quality == tracker.QUALITY_GOOD)),
+          f"a frame did not track GOOD on the new map: {quality.tolist()}")
     check(worst_r < BOOT_TRACK_R_ERR and worst_t < BOOT_TRACK_T_ERR,
           f"tracking on the new map drifted: {worst_r} rad, {worst_t}")
     n_front = N_TRAIL_FRAMES + 1 + N_TRACK_FRAMES
@@ -532,47 +605,158 @@ def phase_bootstrap(device, fast, bootstrap, frame_step, tracker, fixtures,
     return config, cam, frames, trails, second, init, launches
 
 
-@contextlib.contextmanager
-def timed_stages(bootstrap):
-    """Times the three heavy stages of init_from_stereo from outside it:
-    while the context is open, homography.compute, init_points_step and
-    calc_plane_aligner, as the bootstrap module reaches them, run between
-    two device synchronisations and their host-clock milliseconds land in
-    the yielded dict."""
-    targets = {"homography": (bootstrap.homography, "compute"),
-               "init_points": (bootstrap.fstep, "init_points_step"),
-               "plane_aligner": (bootstrap.mapmaker, "calc_plane_aligner")}
-    stage_ms = {}
+def map_rms(slam_map, cam, config, mapmaker, bundle):
+    """Noise-scaled reprojection rms of the map's global bundle problem."""
+    kfs = slam_map.keyframes
+    prob = mapmaker.build_ba_problem(slam_map, kfs.valid & ~kfs.fixed, config)
+    return float(bundle.reprojection_rms(prob, cam))
 
-    def timed(stage, fn):
+
+@contextlib.contextmanager
+def timed_stages(bootstrap, fine=False):
+    """Times the stages of init_from_stereo from outside it. While the
+    context is open, the functions the bootstrap module reaches run between
+    two device synchronisations and their host-clock milliseconds land in
+    the yielded record:
+
+    - ``ms``: homography (homography.compute), init_points
+      (init_points_step), init_ba5 and init_ba_conv (the bundle-adjustment
+      rounds of 10 and of 20 iterations, summed), init_grow (the four
+      add_map_points_step calls, summed), plane_aligner;
+    - ``rounds``: per bundle-adjustment round its stage, ms, device-to-host
+      reads (bundle_adjust's loop control plus the round's own one), the
+      map's rms before and after (taken outside the timed window) and
+      whether it converged;
+    - ``grow``: per level its ms and the points it added; with `fine`, also
+      the ms of its thinning, corner list, subpixel refinement,
+      triangulation, whole search and insertion (the search's remainder is
+      the ZMSSD with its templates and epipolar geometry)."""
+    from visualslam_android_tpu_torch.models import bundle
+
+    fstep, mapmaker = bootstrap.fstep, bootstrap.mapmaker
+    rec = {"ms": {}, "rounds": [], "grow": {}}
+    level = [None]  # the growth level in progress
+
+    def clocked(fn, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - t0)
+
+    def add(stage, ms):
+        rec["ms"][stage] = rec["ms"].get(stage, 0.0) + ms
+
+    def stage(name, fn):
         def run(*args, **kwargs):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*args, **kwargs)
-            torch.cuda.synchronize()
-            stage_ms[stage] = 1e3 * (time.perf_counter() - t0)
+            out, ms = clocked(fn, *args, **kwargs)
+            add(name, ms)
             return out
         return run
 
-    saved = {stage: getattr(mod, attr)
-             for stage, (mod, attr) in targets.items()}
-    for stage, (mod, attr) in targets.items():
-        setattr(mod, attr, timed(stage, saved[stage]))
+    def ba_round(fn):
+        def run(slam_map, never, failure, cam, config, max_iters, cap):
+            name = "init_ba5" if max_iters == 10 else "init_ba_conv"
+            rms0 = map_rms(slam_map, cam, config, mapmaker, bundle)
+            reads0 = bundle.HOST_READS["bundle_adjust"]
+            out, ms = clocked(fn, slam_map, never, failure, cam, config,
+                              max_iters, cap)
+            add(name, ms)
+            rec["rounds"].append({
+                "stage": name, "ms": ms, "converged": out[3],
+                "host_reads": bundle.HOST_READS["bundle_adjust"] - reads0 + 1,
+                "rms_before": rms0,
+                "rms_after": map_rms(out[0], cam, config, mapmaker, bundle)})
+            return out
+        return run
+
+    def growth(fn):
+        def run(slam_map, new_points, cam, src_kf, lvl, config):
+            n0 = int(new_points.sum())
+            level[0] = lvl
+            out, ms = clocked(fn, slam_map, new_points, cam, src_kf, lvl,
+                              config)
+            level[0] = None
+            add("init_grow", ms)
+            rec["grow"][lvl] = {"ms": ms, "new": int(out[1].sum()) - n0}
+            return out
+        return run
+
+    def within_growth(name, fn):
+        def run(*args, **kwargs):
+            if level[0] is None:
+                return fn(*args, **kwargs)
+            out, ms = clocked(fn, *args, **kwargs)
+            rec["grow"].setdefault(("parts", level[0]), {})[name] = ms
+            return out
+        return run
+
+    patches = [
+        (bootstrap.homography, "compute", lambda f: stage("homography", f)),
+        (fstep, "init_points_step", lambda f: stage("init_points", f)),
+        (mapmaker, "calc_plane_aligner", lambda f: stage("plane_aligner", f)),
+        (bootstrap, "_global_ba", ba_round),
+        (fstep, "add_map_points_step", growth),
+    ]
+    if fine:
+        patches += [
+            (mapmaker, name, lambda f, n=name: within_growth(n, f))
+            for name in ("thin_candidates", "_row_corner_list",
+                         "epipolar_search_cands", "insert_new_points")
+        ] + [
+            (mapmaker.match, "iterate_subpix",
+             lambda f: within_growth("iterate_subpix", f)),
+            (mapmaker.triangulate, "triangulate",
+             lambda f: within_growth("triangulate", f)),
+        ]
+    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in patches]
+    for (mod, attr, wrap), (_, _, fn) in zip(patches, saved):
+        setattr(mod, attr, wrap(fn))
     try:
-        yield stage_ms
+        yield rec
     finally:
-        for stage, (mod, attr) in targets.items():
-            setattr(mod, attr, saved[stage])
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
 
 
-def fmt_stages(stage_ms):
-    return ", ".join(f"{k} {v:.3f}" for k, v in stage_ms.items())
+def fmt_stages(rec):
+    return ", ".join(f"{k} {v:.3f}" for k, v in rec["ms"].items())
 
 
-def phase_bootstrap_cpu(config, cam, frames, trails, second, init_card,
+def print_rounds(rec, card):
+    for i, r in enumerate(rec["rounds"]):
+        print(f"  BA round {i} ({r['stage']}): {r['ms']:.3f} ms, "
+              f"{r['host_reads']} host reads, rms {r['rms_before']:.4f} -> "
+              f"{r['rms_after']:.4f}, converged {r['converged']}  [{card}]")
+    for lvl in bootstrap_levels(rec):
+        g = rec["grow"][lvl]
+        line = f"  growth level {lvl}: {g['ms']:.3f} ms, {g['new']} new points"
+        parts = rec["grow"].get(("parts", lvl))
+        if parts:
+            search = parts["epipolar_search_cands"]
+            inner = (parts["_row_corner_list"] + parts["iterate_subpix"]
+                     + parts["triangulate"])
+            line += (f"; thinning {parts['thin_candidates']:.3f}, corner list "
+                     f"{parts['_row_corner_list']:.3f}, ZMSSD with templates "
+                     f"and geometry {search - inner:.3f}, subpixel "
+                     f"{parts['iterate_subpix']:.3f}, triangulation "
+                     f"{parts['triangulate']:.3f}, insertion "
+                     f"{parts['insert_new_points']:.3f} ms")
+        print(f"{line}  [{card}]")
+
+
+def bootstrap_levels(rec):
+    return [k for k in rec["grow"] if not isinstance(k, tuple)]
+
+
+def phase_bootstrap_cpu(config, cam, card, frames, trails, second, init_card,
                         bootstrap, frame_step):
     """Card against CPU for the bootstrap: the same frames and the same
-    MLESAC / plane-RANSAC draws through the plain path on the CPU."""
+    MLESAC / plane-RANSAC draws through the plain path on the CPU. The
+    stages before bundle adjustment are compared value by value, the
+    finished map by outcome."""
+    from visualslam_android_tpu_torch.models import bundle
+
     mc = config.mapmaker
     gen = torch.Generator().manual_seed(1)
     p = trails.valid.float().cpu()
@@ -584,49 +768,251 @@ def phase_bootstrap_cpu(config, cam, frames, trails, second, init_card,
     plane_idx = torch.randint(0, n_sure, (mc.plane_ransac_trials, 3),
                               generator=gen)
     dev = trails.cur_pos.device
-    with timed_stages(bootstrap) as stage_ms:
-        card = bootstrap.init_from_stereo(
+    with timed_stages(bootstrap, fine=True) as rec:
+        card_init = bootstrap.init_from_stereo(
             trails, second, cam, config, homography_trial_idx=hom_idx.to(dev),
             plane_trial_idx=plane_idx.to(dev))
     torch.cuda.synchronize()
-    check(card.ok, f"card bootstrap with explicit draws failed: {card.reason}")
+    check(card_init.ok,
+          f"card bootstrap with explicit draws failed: {card_init.reason}")
+    print(f"bootstrap again in the same process: stage ms {fmt_stages(rec)}"
+          f"  [{card}]")
+    print_rounds(rec, card)
     t_cpu = time.perf_counter()
     cpu_frames = [f.cpu() for f in frames[:N_TRAIL_FRAMES + 1]]
     c_trails, c_second, _, c_counts = run_trails(cpu_frames, config,
                                                  bootstrap, frame_step)
+    cpu_cam = cam.to("cpu")
     cpu = bootstrap.init_from_stereo(
-        c_trails, c_second, cam.to("cpu"), config,
+        c_trails, c_second, cpu_cam, config,
         homography_trial_idx=hom_idx, plane_trial_idx=plane_idx)
     check(cpu.ok, f"CPU bootstrap failed: {cpu.reason}")
     cpu_s = time.perf_counter() - t_cpu
-    d_R = float(torch.max(torch.abs(card.R2.cpu() - cpu.R2)))
-    d_t = float(torch.max(torch.abs(card.t2.cpu() - cpu.t2)))
-    a, b = points_by_source(card.slam_map), points_by_source(cpu.slam_map)
-    common = sorted(set(a) & set(b))
-    d_p = max(float(np.max(np.abs(a[c] - b[c]))) for c in common)
+    d_R = float(torch.max(torch.abs(card_init.R2.cpu() - cpu.R2)))
+    d_t = float(torch.max(torch.abs(card_init.t2.cpu() - cpu.t2)))
     print(f"bootstrap card vs CPU: trails {int(trails.valid.sum())} / "
           f"{c_counts[-1]}, max |R2 diff| {d_R:.3e}, max |t2 diff| {d_t:.3e},"
-          f" n_ok {card.n_ok} / {cpu.n_ok}, {len(common)} common points, "
-          f"max position diff {d_p:.3e} (CPU {cpu_s:.1f} s); warm card "
-          f"stage ms {fmt_stages(stage_ms)}")
+          f" n_ok {card_init.n_ok} / {cpu.n_ok} (CPU {cpu_s:.1f} s)")
     check(d_R <= 1e-3 and d_t <= 1e-3,
           f"card and CPU disagree on (R2, t2): {d_R}, {d_t}")
-    check(abs(card.n_ok - cpu.n_ok) <= 0.02 * cpu.n_ok,
-          f"card and CPU n_ok differ: {card.n_ok} vs {cpu.n_ok}")
-    check(len(common) >= 0.95 * min(card.n_ok, cpu.n_ok),
+    check(abs(card_init.n_ok - cpu.n_ok) <= 0.02 * cpu.n_ok,
+          f"card and CPU n_ok differ: {card_init.n_ok} vs {cpu.n_ok}")
+
+    rms_card = map_rms(card_init.slam_map, cam, config, bootstrap.mapmaker,
+                       bundle)
+    rms_cpu = map_rms(cpu.slam_map, cpu_cam, config, bootstrap.mapmaker,
+                      bundle)
+    d_pose = max(float(torch.max(torch.abs(card_init.R.cpu() - cpu.R))),
+                 float(torch.max(torch.abs(card_init.t.cpu() - cpu.t))))
+    a, b = (points_by_source(card_init.slam_map),
+            points_by_source(cpu.slam_map))
+    common = sorted(set(a) & set(b))
+    d_p = float(np.median([np.max(np.abs(a[c] - b[c])) for c in common]))
+    print(f"bootstrap card vs CPU after BA and growth: points "
+          f"{card_init.n_points} / {cpu.n_points}, BA rounds "
+          f"{card_init.ba_rounds} / {cpu.ba_rounds}, rms {rms_card:.4f} / "
+          f"{rms_cpu:.4f}, keyframe 1 pose diff {d_pose:.3e}, {len(common)} "
+          f"common points, median position diff {d_p:.3e}")
+    check(abs(card_init.n_points - cpu.n_points)
+          <= BOOT_POINTS_AGREE * cpu.n_points,
+          f"card and CPU point counts differ: {card_init.n_points} vs "
+          f"{cpu.n_points}")
+    check(abs(rms_card - rms_cpu) <= BOOT_RMS_AGREE * rms_cpu,
+          f"card and CPU rms differ: {rms_card} vs {rms_cpu}")
+    check(d_pose <= BOOT_POSE_ATOL,
+          f"card and CPU disagree on keyframe 1's pose by {d_pose}")
+    check(len(common) >= 0.9 * min(card_init.n_points, cpu.n_points),
           f"card and CPU made different points: {len(common)} in common")
-    check(d_p <= 1e-3, f"card and CPU point positions differ by {d_p}")
+    check(card_init.ba_converged and cpu.ba_converged,
+          "bundle adjustment did not converge on the card or on the CPU")
+
+
+def make_ba_problem(config, seed, bundle, cam_ops, lie, synthetic):
+    """A bundle problem at the map's capacities, made with numpy from a
+    seed on the CPU: every keyframe slot holds a camera on a sideways arc
+    looking at a cloud of points 3.5-6 m away (camera 0 fixed), every point
+    slot a point seen by up to max_obs_per_point of the cameras that have
+    it in the image, at pyramid levels 0-2 with BA_NOISE_PX of noise per
+    level-pixel; BA_OUTLIER_SHARE of the measurements are moved by 30-60
+    px. Cameras 1.. and all points start perturbed. Returns (problem,
+    camera, moved [N, O] bool)."""
+    rng = np.random.default_rng(seed)
+    tc = config.tracker
+    K, N = config.mapmaker.max_keyframes, tc.max_map_points
+    O = config.bundle.max_obs_per_point
+    cam = cam_ops.make_camera(config.camera.params(), tc.width, tc.height,
+                              device="cpu")
+    poses = [synthetic.look_at_pose(
+        (-1.2 + 2.4 * k / (K - 1), 0.1 * np.sin(k), 0.0),
+        target=(0.0, 0.0, 4.5), device="cpu") for k in range(K)]
+    R = torch.stack([p[0] for p in poses])
+    t = torch.stack([p[1] for p in poses])
+    pts = torch.from_numpy(np.stack(
+        [rng.uniform(-2.0, 2.0, N), rng.uniform(-1.2, 1.2, N),
+         rng.uniform(3.5, 6.0, N)], -1).astype(np.float32))
+    pc = torch.einsum("kij,nj->nki", R, pts) + t  # [N, K, 3]
+    px = cam_ops.project(cam, pc[..., :2] / pc[..., 2:3])
+    seen = (pc[..., 2] > 0.1) & cam_ops.in_image(cam, px, border=5.0)
+    # Up to O of the cameras that see a point, drawn at random.
+    order = torch.from_numpy(
+        np.argsort(np.where(seen.numpy(), rng.uniform(size=(N, K)), 2.0),
+                   axis=1)[:, :O].astype(np.int64))
+    meas_valid = torch.gather(seen, 1, order)
+    level = torch.from_numpy(rng.integers(0, 3, (N, O)).astype(np.float32))
+    noise = torch.from_numpy(
+        rng.normal(scale=BA_NOISE_PX, size=(N, O, 2)).astype(np.float32))
+    uv = torch.gather(px, 1, order[..., None].expand(N, O, 2)) \
+        + noise * (2.0 ** level)[..., None]
+    moved = meas_valid & torch.from_numpy(
+        rng.uniform(size=(N, O)) < BA_OUTLIER_SHARE)
+    jump = torch.from_numpy(rng.uniform(30, 60, (N, O, 2)).astype(np.float32))
+    uv = torch.where(moved[..., None], uv + jump, uv)
+
+    dmu = torch.from_numpy(rng.normal(scale=0.01, size=(K, 6)).astype(
+        np.float32))
+    dmu[0] = 0.0
+    R0, t0 = lie.se3_mul(*lie.se3_exp(dmu), R, t)
+    pts0 = pts + torch.from_numpy(
+        rng.normal(scale=0.02, size=(N, 3)).astype(np.float32))
+    fixed = torch.zeros(K, dtype=torch.bool)
+    fixed[0] = True
+    prob = bundle.BAProblem(
+        cam_R=R0, cam_t=t0, cam_fixed=fixed,
+        cam_valid=torch.ones(K, dtype=torch.bool), points=pts0,
+        point_valid=meas_valid.sum(1) >= 2,
+        meas_kf=order.to(torch.int32), meas_uv=uv,
+        meas_sqrt_inv_noise=2.0 ** -level, meas_valid=meas_valid,
+    )
+    return prob, cam, moved & prob.point_valid[:, None]
+
+
+def ba_outcome(prob, cam, res, bundle, mestimator):
+    """(rms over the kept measurements, robust objective) of a result: the
+    Tukey scores at the result's sigma plus one per ejected measurement,
+    which is what bundle_adjust minimises."""
+    kept = prob.replace(meas_valid=res.meas_valid)
+    rms = float(bundle.reprojection_rms(kept, cam, res.cam_R, res.cam_t,
+                                        res.points))
+    _, _, err_sq, z_bad = bundle._project_all(
+        cam, res.cam_R, res.cam_t, res.points, bundle._sanitized(kept)[0])
+    score = mestimator.objective_score(err_sq, res.sigma_squared)
+    ok = res.meas_valid & ~z_bad
+    return rms, float(torch.sum(torch.where(ok, score, 0.0))
+                      + res.outlier_meas.sum())
+
+
+def event_ms(fn, reps=10):
+    """Median CUDA-event milliseconds of one eager call of fn (host launch
+    gaps included: this is what the call costs as the port makes it), and
+    its last result."""
+    out = fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times), out
+
+
+def phase_ba_full(device, card, config, bundle, cam_ops, lie, mestimator,
+                  synthetic, wls):
+    """Bundle adjustment at the map's full capacities on the card: outcome,
+    card against CPU, and one LM iteration timed by stage."""
+    bc = config.bundle
+    prob_cpu, cam_cpu, moved = make_ba_problem(config, BA_SEED, bundle,
+                                               cam_ops, lie, synthetic)
+    prob, cam = prob_cpu.to(device), cam_cpu.to(device)
+    N, O = prob.meas_valid.shape
+    K = prob.cam_R.shape[0]
+    n_meas, n_moved = int(prob_cpu.meas_valid.sum()), int(moved.sum())
+    rms0 = float(bundle.reprojection_rms(prob, cam))
+    kwargs = dict(max_iters=20, point_block=bc.point_block,
+                  assembly="scatter", solver="chol")
+
+    runs = []
+    for _ in range(2):  # first call, and again
+        bundle.HOST_READS["bundle_adjust"] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = bundle.bundle_adjust(prob, cam, **kwargs)
+        torch.cuda.synchronize()
+        runs.append((1e3 * (time.perf_counter() - t0),
+                     bundle.HOST_READS["bundle_adjust"]))
+    rms1, obj1 = ba_outcome(prob, cam, res, bundle, mestimator)
+    ejected = res.outlier_meas.cpu()
+    hit = int((ejected & moved).sum())
+    print(f"full-size BA: {K} cameras, {int(prob_cpu.point_valid.sum())} of "
+          f"{N} points, {n_meas} measurements ({n_moved} moved); rms "
+          f"{rms0:.4f} -> {rms1:.4f}, {int(res.accepted)} steps accepted, "
+          f"converged {bool(res.converged)}, ejected {int(ejected.sum())} "
+          f"({hit} of the moved ones); first call {runs[0][0]:.3f} ms, again "
+          f"{runs[1][0]:.3f} ms for {runs[1][1]} iterations = host reads "
+          f"({runs[1][0] / runs[1][1]:.3f} ms each)  [{card}]")
+    check(rms0 > BA_RMS_BEFORE, f"the problem starts at rms {rms0}")
+    check(rms1 < BA_RMS_AFTER, f"full-size BA ended at rms {rms1}")
+    check(hit >= BA_EJECTED_SHARE * n_moved,
+          f"only {hit} of {n_moved} moved measurements were ejected")
+    check(bool(torch.isfinite(res.cam_t).all()
+               and torch.isfinite(res.points).all()),
+          "full-size BA left a non-finite state")
+    check(torch.equal(res.cam_R[0], prob.cam_R[0])
+          and torch.equal(res.cam_t[0], prob.cam_t[0]),
+          "full-size BA moved the fixed camera")
+
+    t0 = time.perf_counter()
+    res_cpu = bundle.bundle_adjust(prob_cpu, cam_cpu, **kwargs)
+    cpu_s = time.perf_counter() - t0
+    rms_c, obj_c = ba_outcome(prob_cpu, cam_cpu, res_cpu, bundle, mestimator)
+    differ = int((ejected != res_cpu.outlier_meas).sum())
+    print(f"full-size BA card vs CPU: rms {rms1:.4f} / {rms_c:.4f}, objective "
+          f"{obj1:.3f} / {obj_c:.3f}, ejected sets differ at {differ} "
+          f"measurements (CPU {cpu_s:.1f} s)")
+    check(abs(rms1 - rms_c) <= BA_AGREE * rms_c,
+          f"card and CPU rms differ: {rms1} vs {rms_c}")
+    check(abs(obj1 - obj_c) <= BA_AGREE * obj_c,
+          f"card and CPU objectives differ: {obj1} vs {obj_c}")
+    check(differ <= 0.01 * n_meas,
+          f"card and CPU eject different measurements: {differ}")
+
+    # One LM iteration at the problem's first state, stage by stage.
+    sp, valid = bundle._sanitized(prob)
+    fixed_m = sp.cam_fixed[sp.meas_kf.long()]
+    lam = bc.lambda_init
+    ms_lin, lin = event_ms(lambda: bundle._linearize(
+        sp, cam, sp.cam_R, sp.cam_t, sp.points, valid, fixed_m,
+        bundle.MIN_SIGMA_SQ))
+    ms_schur, (Sm, E, Vinv, free) = event_ms(lambda: bundle._reduced_system(
+        lin, sp, lam, bc.point_block))
+    ms_solve, upd = event_ms(lambda: wls.solve_spd(Sm, E.reshape(-1),
+                                                   ridge=0.0))
+    ms_back, _ = event_ms(lambda: bundle._back_substitute(
+        lin, sp, cam, sp.cam_R, sp.cam_t, sp.points, upd.reshape(K, 6), Vinv,
+        free, bc.update_convergence))
+    print(f"full-size BA, one LM iteration by stage (CUDA events around the "
+          f"eager calls, median of 10): projection + sigma + Jacobians + "
+          f"accumulators {ms_lin:.3f} ms, Schur assembly {ms_schur:.3f} ms "
+          f"([{N}, {O}, {O}, 6, 6] pair blocks into [{6 * K}, {6 * K}]), "
+          f"Cholesky solve {ms_solve:.3f} ms, back-substitution + "
+          f"re-projection {ms_back:.3f} ms; sum "
+          f"{ms_lin + ms_schur + ms_solve + ms_back:.3f} ms  [{card}]")
 
 
 def main():
     if not torch.cuda.is_available():
         raise SmokeFailure("CUDA is not available: chip_smoke needs a GPU")
     import visualslam_android_tpu_torch  # noqa: F401  (sets TF32 off)
-    from visualslam_android_tpu_torch.models import bootstrap, frame_step
+    from visualslam_android_tpu_torch.models import bootstrap, bundle
+    from visualslam_android_tpu_torch.models import frame_step
     from visualslam_android_tpu_torch.models import keyframe as kf_mod
     from visualslam_android_tpu_torch.models import tracker
     from visualslam_android_tpu_torch.ops import camera as cam_ops
-    from visualslam_android_tpu_torch.ops import cuda_build, fast, image
+    from visualslam_android_tpu_torch.ops import cuda_build, fast, image, lie
+    from visualslam_android_tpu_torch.ops import mestimator, wls
     from visualslam_android_tpu_torch.ops import sbi as sbi_ops
     from visualslam_android_tpu_torch.utils import fixtures, synthetic
 
@@ -780,12 +1166,21 @@ def main():
 
     # ---- 7. the stereo bootstrap, then tracking on its map ----
     (b_config, b_cam, b_frames, trails, second, init,
-     boot_launches) = phase_bootstrap(device, fast, bootstrap, frame_step,
-                                      tracker, fixtures, synthetic, cam_ops)
+     boot_launches) = phase_bootstrap(device, card, fast, bootstrap,
+                                      frame_step, tracker, fixtures,
+                                      synthetic, cam_ops)
 
     # ---- 8. bootstrap: card vs CPU ----
-    phase_bootstrap_cpu(b_config, b_cam, b_frames, trails, second, init,
-                        bootstrap, frame_step)
+    phase_bootstrap_cpu(b_config, b_cam, card, b_frames, trails, second,
+                        init, bootstrap, frame_step)
+    del b_frames, trails, second, init
+
+    # ---- 9. bundle adjustment at full state size ----
+    for key in fast.LAUNCHES:
+        fast.LAUNCHES[key] = 0
+    phase_ba_full(device, card, b_config, bundle, cam_ops, lie, mestimator,
+                  synthetic, wls)
+    ba_launches = dict(fast.LAUNCHES)
 
     one_frame_ms = sum(r[2] for r in rows)
     one_frame_plain = sum(r[3] for r in rows)
@@ -795,9 +1190,11 @@ def main():
     def row(name, **measured):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces,
-                "launches": chain_launches[name] + boot_launches[name],
+                "launches": (chain_launches[name] + boot_launches[name]
+                             + ba_launches[name]),
                 "launches_by_path": {"chain": chain_launches[name],
-                                     "bootstrap": boot_launches[name]},
+                                     "bootstrap": boot_launches[name],
+                                     "ba_full_size": ba_launches[name]},
                 "library_ms": None, **measured}
 
     print(json.dumps({"kernels": [

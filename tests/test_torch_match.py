@@ -36,7 +36,7 @@ def case():
     config = tfix.small_config()
     tc = config.tracker
     sm, cam, scene, (R0, t0), _ = tfix.build_fixed_map(
-        config, np.random.default_rng(11)
+        config, np.random.default_rng(11), device="cpu"
     )
     mu = torch.tensor([0.03, -0.02, 0.04, 0.01, -0.015, 0.02])
     dR, dt = tlie.se3_exp(mu)

@@ -135,7 +135,8 @@ def test_lie(case):
 
 def _cameras():
     p = jconfig.CameraConfig().params()
-    return jcam.make_camera(p, 320, 240), tcam.make_camera(p, 320, 240)
+    return (jcam.make_camera(p, 320, 240),
+            tcam.make_camera(p, 320, 240, device="cpu"))
 
 
 CAMERA_CASES = ["make_camera", "scale_camera", "project", "unproject",
@@ -231,7 +232,7 @@ def test_image(case):
         _close(jimg.bilinear_sample(img, xy),
                timg.bilinear_sample(_t(img), _t(xy)))
     elif case == "patch_grid":
-        _close(jimg.patch_grid(5), timg.patch_grid(5), atol=0)
+        _close(jimg.patch_grid(5), timg.patch_grid(5, device="cpu"), atol=0)
     elif case == "shi_tomasi_dense":
         # Box sums of squared gradients reach ~1e6 (scores ~1e4), summed
         # in another order: 1e-5 relative.
@@ -284,3 +285,46 @@ def test_sbi(case):
         tR, tt = tsbi.se3_from_se2(_t(se2), tc, cur.shape)
         _close(jR, tR)
         _close(jt, tt)
+
+
+def test_constructors_build_on_the_card_unless_told():
+    """Every state constructor takes device=None and resolves it to the
+    CUDA card; without one it raises and says to pass device="cpu". It
+    never carries on on the CPU unasked. device="cpu" builds there."""
+    import inspect
+
+    from visualslam_android_tpu_torch.models import map_store as tms
+    from visualslam_android_tpu_torch.utils import convert
+    from visualslam_android_tpu_torch.utils import fixtures as tfix
+    from visualslam_android_tpu_torch.utils import synthetic as tsyn
+    from visualslam_android_tpu_torch.utils import tensors
+
+    cfg = tfix.small_config()
+    rng = np.random.default_rng(0)
+    calls = [
+        lambda **kw: tms.empty_map(cfg, **kw),
+        lambda **kw: tcam.make_camera(cfg.camera.params(), 320, 240, **kw),
+        lambda **kw: timg.patch_grid(2, **kw),
+        lambda **kw: tsyn.look_at_pose((0.0, 0.0, 0.0), **kw),
+        lambda **kw: tsyn.make_planar_scene(rng, tex_size=64, n_blobs=3, **kw),
+        lambda **kw: tfix.build_fixed_map(cfg, rng, **kw),
+        lambda **kw: convert.camera_from_numpy(
+            tcam.make_camera(cfg.camera.params(), 320, 240, device="cpu"),
+            **kw),
+    ]
+    functions = [tms.empty_map, tcam.make_camera, timg.patch_grid,
+                 tsyn.look_at_pose, tsyn.make_planar_scene,
+                 tfix.build_fixed_map] + [
+        getattr(convert, n) for n in dir(convert) if n.endswith("_from_numpy")]
+    assert len(functions) == 6 + 10
+    for fn in functions:
+        assert inspect.signature(fn).parameters["device"].default is None, fn
+    if torch.cuda.is_available():
+        assert tensors.default_device().type == "cuda"
+    else:
+        for call in calls:
+            with pytest.raises(RuntimeError, match='device="cpu"'):
+                call()
+    assert tensors.default_device("cpu") == torch.device("cpu")
+    assert tms.empty_map(cfg, device="cpu").points.valid.device.type == "cpu"
+    assert timg.patch_grid(2, device="cpu").shape == (25, 2)

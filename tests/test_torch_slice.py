@@ -73,14 +73,14 @@ def chain():
         jkf.make_frame(jnp.asarray(frames[0]), jcfg).pyramid[-1], tc.sbi_blur
     )
 
-    t_map = convert.map_from_numpy(_np_tree(sm))
-    t_cam = convert.camera_from_numpy(_np_tree(cam))
+    t_map = convert.map_from_numpy(_np_tree(sm), device="cpu")
+    t_cam = convert.camera_from_numpy(_np_tree(cam), device="cpu")
     j = dict(sm=sm, R=R0, t=t0, v=jnp.zeros(6), msd=jnp.asarray(0.0),
              depth=jnp.asarray(4.0), sbi=sbi0)
     t = dict(sm=t_map, R=torch.as_tensor(np.array(R0)),
              t=torch.as_tensor(np.array(t0)), v=torch.zeros(6),
              msd=torch.tensor(0.0), depth=torch.tensor(4.0),
-             sbi=convert.sbi_from_numpy(_np_tree(sbi0)))
+             sbi=convert.sbi_from_numpy(_np_tree(sbi0), device="cpu"))
     key = jax.random.PRNGKey(0)
     outs = []
     for img in frames:
@@ -141,7 +141,7 @@ def test_make_frame_matches_jax(chain):
     (sums of 16 f32 terms)."""
     img = chain["frames"][0]
     jf = convert.frame_from_numpy(
-        _np_tree(jkf.make_frame(jnp.asarray(img), chain["jcfg"]))
+        _np_tree(jkf.make_frame(jnp.asarray(img), chain["jcfg"])), device="cpu"
     )
     tf = tkf.make_frame(torch.from_numpy(img.copy()), chain["tcfg"])
     for jp, tp, jm, tm, js, ts in zip(jf.pyramid, tf.pyramid, jf.corner_mask,
@@ -181,7 +181,8 @@ def test_forced_coarse_without_prior_matches_jax(chain):
         torch.from_numpy(img.copy()), c["t_map"], c["t_cam"],
         torch.as_tensor(np.array(c["R0"])), torch.as_tensor(np.array(c["t0"])),
         torch.zeros(6), torch.tensor(0.0), torch.tensor(4.0),
-        torch.tensor(1.0), convert.sbi_from_numpy(_np_tree(c["sbi0"])),
+        torch.tensor(1.0),
+        convert.sbi_from_numpy(_np_tree(c["sbi0"]), device="cpu"),
         torch.zeros(N, dtype=torch.bool), torch.zeros(N, K, dtype=torch.bool),
         torch.zeros(2), c["tcfg"], use_prior=False, forced_coarse=True,
         uniforms=uniforms,
@@ -207,7 +208,7 @@ def test_fixed_map_and_render_match_jax():
         jcfg, np.random.default_rng(5)
     )
     tsm, tcam, tscene, (tR, tt), tn = tfix.build_fixed_map(
-        tcfg, np.random.default_rng(5)
+        tcfg, np.random.default_rng(5), device="cpu"
     )
     assert jn == tn > 50
     jp, tp = jsm.points, tsm.points
@@ -238,10 +239,15 @@ def test_fixed_map_and_render_match_jax():
 
 
 def test_port_does_not_import_jax():
-    code = ("import sys, visualslam_android_tpu_torch; "
-            "import visualslam_android_tpu_torch.models.frame_step; "
-            "import visualslam_android_tpu_torch.utils.fixtures; "
-            "import visualslam_android_tpu_torch.utils.convert; "
+    """Every module of the port, found by walking the package, imports
+    without jax or the JAX package."""
+    code = ("import sys, pkgutil, importlib; "
+            "import visualslam_android_tpu_torch as p; "
+            "names = [m.name for m in pkgutil.walk_packages(p.__path__, "
+            "p.__name__ + '.')]; "
+            "[importlib.import_module(n) for n in names]; "
+            "assert p.__name__ + '.models.bundle' in names, names; "
+            "assert len(names) >= 27, names; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert 'visualslam_android_tpu' not in sys.modules")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

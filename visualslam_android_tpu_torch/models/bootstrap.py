@@ -13,24 +13,22 @@ The path: ``trail_start`` samples MiniPatches at the first frame's best
 level-0 Shi-Tomasi candidates; ``trail_advance`` follows them frame by
 frame; ``init_from_stereo`` fits the homography between the trails' first
 and current positions, inserts the two keyframes, triangulates the trail
-matches into map points, refreshes the scene depth and aligns the dominant
-plane with z = 0.
+matches into map points, runs 5 rounds of global bundle adjustment,
+refreshes the scene depth, grows the map from keyframe 1 by epipolar
+search at levels 0, 3, 1, 2, bundle-adjusts until convergence (4 rounds at
+most) and aligns the dominant plane with z = 0.
 
-Not ported yet, and skipped here where the JAX package runs them inside
-``_init_from_stereo``: the 5 + up to 4 rounds of global bundle adjustment
-(``slam.py:707-718``, ``:739-746``) and the epipolar growth at levels
-0, 3, 1, 2 (``slam.py:730-733``). The map this module builds therefore
-holds the triangulated trail points only, all at level 0, unrefined.
-
-The host reads the device where the JAX package's loop does: the trail
-count per frame, homography success and baseline length, the number of
-triangulated points, and the final depth and point count.
+The host reads the device where the reference's loop decides something:
+the trail count per frame, homography success and baseline length, the
+number of triangulated points, convergence and map health once per
+bundle-adjustment round (besides bundle_adjust's own loop control), and the
+final depth and point count.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -64,9 +62,10 @@ class TrailState(TensorTree):
 @dataclasses.dataclass(frozen=True)
 class StereoInit:
     """What init_from_stereo made. When `ok`, (slam_map, R, t, velocity,
-    msd, depth, wiggle_depth_norm) is the state frame_step takes for the
-    next frame; otherwise `reason` says which of the reference's aborts
-    fired and the state fields are None."""
+    msd, depth, wiggle_depth_norm, new_points, failure_mask) is the state
+    frame_step takes for the next frame, and never_retry goes with
+    failure_mask to the mapping stages; otherwise `reason` says which of
+    the reference's aborts fired and the state fields are None."""
 
     ok: bool
     reason: str
@@ -82,6 +81,51 @@ class StereoInit:
     msd: Optional[torch.Tensor] = None
     depth: Optional[torch.Tensor] = None
     wiggle_depth_norm: Optional[torch.Tensor] = None
+    new_points: Optional[torch.Tensor] = None    # [N] the new-point queue
+    never_retry: Optional[torch.Tensor] = None   # [N, K] ejected for good
+    failure_mask: Optional[torch.Tensor] = None  # [N, K] ejected, retryable
+    ba_rounds: Tuple[int, int] = (0, 0)  # rounds run: fixed, to convergence
+    ba_converged: bool = False
+
+
+# InitFromStereo's schedule (MapMaker.cc:346-367): 5 global rounds of 10
+# iterations, growth at these levels, then rounds of 20 until one converges.
+N_INIT_BA_ROUNDS = 5
+INIT_GROW_LEVELS = (0, 3, 1, 2)
+MAX_CONV_BA_ROUNDS = 4
+
+
+def init_point_slots(config: SLAMConfig) -> int:
+    """The point slots the bootstrap's map can reach: the trails and four
+    growths of max_epi_candidates, rounded up to 256, within the map's
+    capacity. New points fill the lowest free slots, so the whole map lies
+    in this prefix and the bootstrap's bundle adjustment runs on it."""
+    tc = config.tracker
+    reach = tc.max_trails + 4 * config.mapmaker.max_epi_candidates
+    return min(tc.max_map_points, -(-reach // 256) * 256)
+
+
+def _global_ba(slam_map: SLAMMap, never_retry, failure_mask, cam,
+               config: SLAMConfig, max_iters: int, cap):
+    """One global bundle-adjustment round on the prefix `cap`; reads the
+    device once. Returns (slam_map, never_retry, failure_mask, converged,
+    map_ok), the last two as host bools. Raises if the map has left the
+    prefix, which the slot allocation order rules out."""
+    sm, failure_mask, never_retry, conv, map_ok = fstep.ba_round(
+        slam_map, 1, never_retry, failure_mask, cam, config,
+        max_iters=max_iters, assembly="scatter", solver="chol",
+        mode="global", cap=cap,
+    )
+    in_prefix = ~(torch.any(sm.points.valid[cap[0]:])
+                  | torch.any(sm.keyframes.valid[cap[1]:]))
+    conv, map_ok, in_prefix = torch.stack([conv, map_ok, in_prefix]).tolist()
+    if not in_prefix:
+        raise RuntimeError(
+            f"the bootstrap map has left its first {cap[0]} point slots or "
+            f"{cap[1]} keyframe slots: the prefix bundle adjustment would "
+            "miss part of it"
+        )
+    return sm, never_retry, failure_mask, conv, map_ok
 
 
 def trail_start(frame: FrameData, config: SLAMConfig) -> TrailState:
@@ -158,14 +202,38 @@ def init_from_stereo(trails: TrailState, frame_second: FrameData, cam,
         return StereoInit(False, "fewer than 10 points", homography=res,
                           R2=R2, t2=t2, n_ok=n_ok)
 
-    # The JAX package runs 5 rounds of global bundle adjustment here
-    # (ROADMAP queue 1 item 8: not ported yet).
+    # ---- 5x BundleAdjustAll (MapMaker.cc:346-347) ----
+    N, K = cfg.tracker.max_map_points, mc.max_keyframes
+    never_retry = torch.zeros(N, K, dtype=torch.bool, device=device)
+    failure_mask = torch.zeros(N, K, dtype=torch.bool, device=device)
+    cap = (init_point_slots(cfg), 2)
+    non_finite = StereoInit(
+        False, "bundle adjustment left a non-finite map", homography=res,
+        R2=R2, t2=t2, n_ok=n_ok)
+    for _ in range(N_INIT_BA_ROUNDS):
+        sm, never_retry, failure_mask, _, map_ok = _global_ba(
+            sm, never_retry, failure_mask, cam, cfg, 10, cap)
+        if not map_ok:
+            return non_finite
     sm = kf_mod.refresh_scene_depth(sm, 0)
     sm = kf_mod.refresh_scene_depth(sm, 1)
     depth = sm.keyframes.depth_mean[0].clone()
     wiggle = mc.wiggle_scale / torch.clamp(depth, min=1e-6)
-    # ... then epipolar growth at levels 0, 3, 1, 2 (queue 1 item 9) and
-    # bundle adjustment to convergence (item 8): not ported yet.
+
+    # ---- epipolar growth from keyframe 1 (MapMaker.cc:355-358) ----
+    new_points = torch.zeros(N, dtype=torch.bool, device=device)
+    for level in INIT_GROW_LEVELS:
+        sm, new_points = fstep.add_map_points_step(sm, new_points, cam, 1,
+                                                   level, cfg)
+
+    # ---- BA until converged (MapMaker.cc:363-367) ----
+    converged, conv_rounds = False, 0
+    while not converged and conv_rounds < MAX_CONV_BA_ROUNDS:
+        sm, never_retry, failure_mask, converged, map_ok = _global_ba(
+            sm, never_retry, failure_mask, cam, cfg, 20, cap)
+        conv_rounds += 1
+        if not map_ok:
+            return non_finite
 
     # ---- dominant-plane alignment (MapMaker.cc:369-372) ----
     # Applied as a masked transform (identity when the RANSAC found no
@@ -187,5 +255,7 @@ def init_from_stereo(trails: TrailState, frame_second: FrameData, cam,
         R=sm.keyframes.R[1].clone(), t=sm.keyframes.t[1].clone(),
         velocity=torch.zeros(6, device=device),
         msd=torch.zeros((), device=device), depth=depth,
-        wiggle_depth_norm=wiggle,
+        wiggle_depth_norm=wiggle, new_points=new_points,
+        never_retry=never_retry, failure_mask=failure_mask,
+        ba_rounds=(N_INIT_BA_ROUNDS, conv_rounds), ba_converged=converged,
     )

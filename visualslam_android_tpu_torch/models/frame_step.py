@@ -12,7 +12,10 @@ the device once per frame.
 Also the bootstrap-phase stages of the same JAX module:
 ``bootstrap_frontend`` (MakeKeyFrame_Lite + SBI), ``trail_advance_step``
 (TrailTracking_Advance, jni/Tracker.cc:294-346) and ``init_points_step``
-(InitFromStereo's point building, jni/MapMaker.cc:262-339).
+(InitFromStereo's point building, jni/MapMaker.cc:262-339); and two of
+its mapping stages: ``ba_round`` (BundleAdjustRecent / BundleAdjustAll,
+jni/MapMaker.cc:776-960) and ``add_map_points_step`` (AddSomeMapPoints,
+jni/MapMaker.cc:427-437).
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import dataclasses
 import torch
 
 from visualslam_android_tpu_torch.config import SLAMConfig
+from visualslam_android_tpu_torch.models import bundle as bundle_mod
 from visualslam_android_tpu_torch.models import keyframe as kf_mod
 from visualslam_android_tpu_torch.models import mapmaker
 from visualslam_android_tpu_torch.models import tracker as tracker_mod
@@ -237,3 +241,137 @@ def init_points_step(slam_map: SLAMMap, frame_second: FrameData, m_a, a, b,
     fix = new_mask[:, None] & (meas.kf == 1) & meas.valid
     meas = meas.replace(source=torch.where(fix, SRC_TRAIL, meas.source))
     return sm.replace(meas=meas), torch.sum(ok.to(torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# Bundle adjustment round (MapMaker.cc:776-960)
+# ---------------------------------------------------------------------------
+
+
+def _obs_mask_to_point_kf(obs_mask, meas_kf, K):
+    """[N, O] measurement mask -> [N, K] point-keyframe mask."""
+    out = torch.zeros(obs_mask.shape[0], K, dtype=torch.int32,
+                      device=obs_mask.device)
+    out.scatter_add_(1, torch.clamp(meas_kf.long(), 0, K - 1),
+                     obs_mask.to(torch.int32))
+    return out > 0
+
+
+def ba_round(slam_map: SLAMMap, newest_kf, never_retry, failure_mask, cam,
+             config: SLAMConfig, max_iters: int, assembly: str, solver: str,
+             mode: str, cap: tuple = ()):
+    """One BundleAdjustRecent (mode "local") or BundleAdjustAll ("global"):
+    adjust-set selection, LM bundle adjustment, write-back and routing of
+    the ejected measurements (MapMaker.cc:801-851, :917-959). Returns
+    (slam_map, failure_mask, never_retry, converged, map_ok); the two
+    scalars stay on the device.
+
+    cap=(n_points, n_cams) runs the LM loop on the first n_points point
+    slots and n_cams keyframe slots only, for a caller that knows the map
+    to lie there (the bootstrap: two keyframes, and point slots fill lowest
+    first). Whatever lies past the prefix (and a measurement of a prefix
+    point by a keyframe past it) takes no part in that run and stays in
+    the map as it was."""
+    kfs = slam_map.keyframes
+    if mode == "local":
+        adjust = mapmaker.local_ba_adjust_mask(slam_map, newest_kf, config)
+    elif mode == "global":
+        adjust = kfs.valid & ~kfs.fixed
+    else:
+        raise ValueError(f"unknown bundle adjustment mode {mode!r}")
+    prob = mapmaker.build_ba_problem(slam_map, adjust, config)
+    bc = config.bundle
+    N, K = prob.points.shape[0], kfs.n_slots
+    cap_n, cap_k = cap if cap else (N, K)
+    # What this run holds: valid measurements whose keyframe index names a
+    # slot of the run (the JAX package clamps the index instead; a dead
+    # slot may hold any), of points inside the run.
+    held = prob.meas_valid & (prob.meas_kf >= 0) & (prob.meas_kf < cap_k)
+    if cap:
+        held = torch.cat([held[:cap_n], torch.zeros_like(held[cap_n:])])
+    prob = prob.replace(meas_valid=held)
+    prob_run = prob
+    if cap:
+        prob_run = bundle_mod.BAProblem(
+            cam_R=prob.cam_R[:cap_k], cam_t=prob.cam_t[:cap_k],
+            cam_fixed=prob.cam_fixed[:cap_k],
+            cam_valid=prob.cam_valid[:cap_k],
+            points=prob.points[:cap_n], point_valid=prob.point_valid[:cap_n],
+            meas_kf=prob.meas_kf[:cap_n], meas_uv=prob.meas_uv[:cap_n],
+            meas_sqrt_inv_noise=prob.meas_sqrt_inv_noise[:cap_n],
+            meas_valid=held[:cap_n],
+        )
+    res = bundle_mod.bundle_adjust(
+        prob_run, cam, max_iters=max_iters, point_block=bc.point_block,
+        assembly=assembly, solver=solver, band_halfwidth=bc.band_halfwidth,
+        cg_iters=bc.cg_iters, cg_tol=bc.cg_tol,
+        update_conv=bc.update_convergence,
+        min_sigma_sq=bc.min_tukey_sigma ** 2,
+        lambda_init=bc.lambda_init, lambda_good=bc.lambda_good,
+        lambda_factor_init=bc.lambda_factor_init,
+    )
+    if cap:
+        # Back to full shapes: nothing past the prefix was held.
+        def cat(a, b):
+            return torch.cat([a, b], dim=0)
+
+        rest = torch.zeros_like(held[cap_n:])
+        res = res.replace(
+            cam_R=cat(res.cam_R, prob.cam_R[cap_k:]),
+            cam_t=cat(res.cam_t, prob.cam_t[cap_k:]),
+            points=cat(res.points, prob.points[cap_n:]),
+            meas_valid=cat(res.meas_valid, rest),
+            outlier_meas=cat(res.outlier_meas, rest),
+            point_outliers=cat(res.point_outliers,
+                               rest[:, 0].to(res.point_outliers.dtype)),
+        )
+    sm, retry, never, _ = mapmaker.apply_ba_result(slam_map, prob, res,
+                                                   config)
+    failure_mask = failure_mask | _obs_mask_to_point_kf(retry, prob.meas_kf,
+                                                        K)
+    never_retry = never_retry | _obs_mask_to_point_kf(never, prob.meas_kf, K)
+    map_ok = (torch.all(torch.isfinite(res.cam_t))
+              & torch.all(torch.isfinite(res.points)))
+    return sm, failure_mask, never_retry, res.converged, map_ok
+
+
+# ---------------------------------------------------------------------------
+# AddSomeMapPoints (MapMaker.cc:427-437), the target chosen on the device
+# ---------------------------------------------------------------------------
+
+
+def _add_map_points_body(slam_map: SLAMMap, new_points, cam, src_kf: int,
+                         level: int, config: SLAMConfig):
+    kfs = slam_map.keyframes
+    d = mapmaker.keyframe_distances(kfs, kfs.R[src_kf], kfs.t[src_kf])
+    d[src_kf] = torch.inf
+    # Invalid slots and src_kf itself are at +inf: a finite minimum names a
+    # valid keyframe other than src_kf. Otherwise everything is gated off.
+    dmin, target = torch.min(d, dim=0)
+    enabled = torch.isfinite(dmin)
+
+    sm = mapmaker.thin_candidates(
+        slam_map, src_kf, level, config.mapmaker.thin_candidates_radius
+    )
+    cand_xy, cand_ok = mapmaker.select_top_candidates(
+        sm.keyframes.cand_xy[level][src_kf].to(kfs.t.dtype),
+        sm.keyframes.cand_valid[level][src_kf] & enabled,
+        config.mapmaker.max_epi_candidates,
+    )
+    res = mapmaker.epipolar_search_cands(sm, src_kf, target, cam, level,
+                                         config, cand_xy, cand_ok)
+    sm, new_mask = mapmaker.insert_new_points(
+        sm, cam, res, src_kf, target, level,
+        config.mapmaker.max_epi_candidates,
+    )
+    return sm, new_points | new_mask
+
+
+def add_map_points_step(slam_map: SLAMMap, new_points, cam, src_kf: int,
+                        level: int, config: SLAMConfig):
+    """AddSomeMapPoints for keyframe `src_kf` (a host int) at `level`:
+    thin its candidates, search the best of them along their epipolar
+    lines in the nearest other keyframe, and insert the matches as new
+    points. Returns (slam_map, new_points [N] with the new ones set)."""
+    return _add_map_points_body(slam_map, new_points, cam, src_kf, level,
+                                config)

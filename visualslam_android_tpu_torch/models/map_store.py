@@ -15,7 +15,10 @@ from typing import Tuple
 import torch
 
 from visualslam_android_tpu_torch.config import SLAMConfig
-from visualslam_android_tpu_torch.utils.tensors import TensorTree
+from visualslam_android_tpu_torch.utils.tensors import (
+    TensorTree,
+    default_device,
+)
 
 # Measurement sources (KeyFrame.h:60 enum).
 SRC_TRACKER = 0
@@ -130,8 +133,10 @@ class SLAMMap(TensorTree):
     good: torch.Tensor  # [] bool
 
 
-def empty_map(config: SLAMConfig, device="cpu",
+def empty_map(config: SLAMConfig, device=None,
               dtype=torch.float32) -> SLAMMap:
+    """An empty map on `device` (the CUDA card when None)."""
+    device = default_device(device)
     tc, mc = config.tracker, config.mapmaker
     N = tc.max_map_points
     K = mc.max_keyframes

@@ -1,12 +1,14 @@
-"""Map construction and maintenance: what the tracking step and the
-stereo bootstrap run.
+"""Map construction and maintenance: what the tracking step, the stereo
+bootstrap and bundle adjustment run.
 
 Port of parts of the JAX package's ``models/mapmaker.py`` (the reference's
 jni/MapMaker.cc): keyframe distances and the keyframe-need tests
 (:705-773, :1098-1101), HandleBadPoints (:140-164), batched measurement
-insertion, packing of new points into free slots, the global map
-transforms (:440-467) and CalcPlaneAligner (:1104-1231). Epipolar search,
-re-find and the bundle-adjustment glue are not ported yet.
+insertion, ThinCandidates (:393-422), the batched epipolar search
+(AddPointEpipolar, :525-703), packing of new points into free slots, the
+global map transforms (:440-467), CalcPlaneAligner (:1104-1231) and the
+bundle-adjustment glue (:776-960: problem construction, the local adjust
+set, write-back with outlier routing). Re-find is not ported yet.
 
 Functions here return new stores and leave their inputs as they were,
 except where a docstring says IN PLACE.
@@ -17,19 +19,45 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.nn.functional as F
 
 from visualslam_android_tpu_torch.config import SLAMConfig
+from visualslam_android_tpu_torch.models import bundle as bundle_mod
 from visualslam_android_tpu_torch.models import keyframe as kf_mod
-from visualslam_android_tpu_torch.models import map_store
+from visualslam_android_tpu_torch.models import map_store, triangulate
 from visualslam_android_tpu_torch.models.map_store import (
     SRC_EPIPOLAR,
     SRC_ROOT,
+    SRC_TRACKER,
     SLAMMap,
 )
+from visualslam_android_tpu_torch.ops import camera as cam_ops
 from visualslam_android_tpu_torch.ops import image as img_ops
-from visualslam_android_tpu_torch.ops import lie
-from visualslam_android_tpu_torch.ops.levels import level_scale
+from visualslam_android_tpu_torch.ops import lie, match
+from visualslam_android_tpu_torch.ops.levels import level_scale, level_zero_pos
 from visualslam_android_tpu_torch.utils.tensors import TensorTree, const
+
+# Per-row capacity of the epipolar search's target-corner list (the
+# fixed-shape analog of the reference's vCornerRowLUT,
+# jni/KeyFrame.cc:43-49): an image row with more corners keeps its first
+# 32 by x. The epipolar band is a few level-pixels wide, so a line crosses
+# a row in a handful of pixels and 32 kept corners hold every plausible
+# match.
+EPI_CORNERS_PER_ROW = 32
+
+
+def _slot_index(idx, device):
+    """A keyframe slot given as a host int or a 0-d tensor -> a [1] long
+    tensor for index_select. Indexing with a 0-d CUDA tensor would read it
+    back to the host; this does not."""
+    if isinstance(idx, torch.Tensor):
+        return idx.reshape(1).long()
+    return const((idx,), device, torch.long)
+
+
+def _slot(x, idx):
+    """x[idx] for a slot index made by _slot_index."""
+    return x.index_select(0, idx)[0]
 
 
 def keyframe_distances(kfs, R, t):
@@ -138,6 +166,51 @@ def add_measurements_batch(meas, point_mask, kf_idx, uv, level, source: int,
 
 
 # ---------------------------------------------------------------------------
+# ThinCandidates (MapMaker.cc:393-422)
+# ---------------------------------------------------------------------------
+
+
+def _disk(radius: int, device, dtype):
+    """[1, 1, 2r-1, 2r-1] kernel of ones where dx^2 + dy^2 < r^2."""
+    o = torch.arange(-(radius - 1), radius, device=device)
+    return ((o[:, None] ** 2 + o[None, :] ** 2) < radius * radius).to(
+        dtype)[None, None]
+
+
+def thin_candidates(slam_map: SLAMMap, kf_idx: int, level: int, radius=10):
+    """Clear the candidate slots of keyframe `kf_idx` at `level` that lie
+    within `radius` (level pixels) of a measurement of that keyframe at
+    the same or the next-higher level: strictly dx^2 + dy^2 < radius^2 on
+    rounded positions, the reference's squared-distance test
+    (MapMaker.cc:404-416).
+
+    The busy positions are marked in a level-sized mask, the mask is
+    dilated by the disk (one convolution of 0/1 values, exact in f32) and
+    read at the candidates. Returns a new map; the input keeps its
+    candidate masks."""
+    kfs, meas = slam_map.keyframes, slam_map.meas
+    H, W = kfs.pyramid[level].shape[-2:]
+    busy = (meas.valid & (meas.kf == kf_idx)
+            & ((meas.level == level) | (meas.level == level + 1)))  # [N, O]
+    xy = torch.round(meas.uv / level_scale(level)).long()
+    bx, by = torch.clamp(xy[..., 0], min=0), torch.clamp(xy[..., 1], min=0)
+    # Positions off the level mark nothing: they go to one spare element.
+    inside = busy & (bx < W) & (by < H)
+    flat = torch.zeros(H * W + 1, dtype=kfs.R.dtype, device=busy.device)
+    flat[torch.where(inside, by * W + bx, H * W).reshape(-1)] = 1.0
+    r = int(radius)
+    near = F.conv2d(flat[:H * W].view(1, 1, H, W),
+                    _disk(r, flat.device, flat.dtype), padding=r - 1)[0, 0]
+    cand = kfs.cand_xy[level][kf_idx].long()  # [C, 2]
+    blocked = near[torch.clamp(cand[:, 1], 0, H - 1),
+                   torch.clamp(cand[:, 0], 0, W - 1)] > 0.5
+    cv = list(kfs.cand_valid)
+    cv[level] = cv[level].clone()
+    cv[level][kf_idx] = cv[level][kf_idx] & ~blocked
+    return slam_map.replace(keyframes=kfs.replace(cand_valid=tuple(cv)))
+
+
+# ---------------------------------------------------------------------------
 # New points from two-view matches (MapMaker.cc:262-339, :648-703)
 # ---------------------------------------------------------------------------
 
@@ -148,6 +221,180 @@ class EpipolarResult(TensorTree):
     pos_w: torch.Tensor      # [C, 3] triangulated world position
     src_uv: torch.Tensor     # [C, 2] level-0 position in the source KF
     target_uv: torch.Tensor  # [C, 2] level-0 position in the target KF
+
+
+def select_top_candidates(cand_xy, cand_ok, max_n: int):
+    """The `max_n` best valid candidates as a fixed slab. Candidate slots
+    are stored in descending Shi-Tomasi order, so a stable valid-first sort
+    keeps that ranking. It bounds the epipolar search's C axis before the
+    search: insert_new_points takes max_epi_candidates successes at most."""
+    if cand_ok.shape[0] <= max_n:
+        return cand_xy, cand_ok
+    order = torch.sort((~cand_ok).to(torch.int8), stable=True)[1][:max_n]
+    return cand_xy[order], cand_ok[order]
+
+
+def epipolar_search(slam_map: SLAMMap, src_kf, target_kf, cam, level: int,
+                    config: SLAMConfig) -> EpipolarResult:
+    """Batched epipolar point search: the best valid candidates of src_kf
+    at `level` (max_epi_candidates at most) against the corners of
+    target_kf at the same level."""
+    kfs = slam_map.keyframes
+    src = _slot_index(src_kf, kfs.t.device)
+    cand_xy, cand_ok = select_top_candidates(
+        _slot(kfs.cand_xy[level], src).to(kfs.t.dtype),
+        _slot(kfs.cand_valid[level], src),
+        config.mapmaker.max_epi_candidates,
+    )
+    return epipolar_search_cands(slam_map, src_kf, target_kf, cam, level,
+                                 config, cand_xy, cand_ok)
+
+
+def _row_corner_list(cm, per_row: int):
+    """The first `per_row` set pixels of each row of the mask cm [H, W], by
+    x: (cx [H*B], cy [H*B], corner_ok [H*B]) with B = min(per_row, W). A
+    running count along the row ranks the corners; each kept corner writes
+    its x into its rank's column and every other pixel into a spare column,
+    so nothing is sorted and nothing is read back. Slots past a row's count
+    hold x = 0 and are not ok."""
+    H, W = cm.shape
+    B = min(per_row, W)
+    device = cm.device
+    rank = torch.cumsum(cm.to(torch.int32), dim=1) - 1
+    col = torch.where(cm & (rank < B), rank, B).long()
+    xs = torch.arange(W, device=device).expand(H, W)
+    cx = torch.zeros(H, B + 1, dtype=torch.long, device=device)
+    cx.scatter_(1, col, xs)
+    cx = cx[:, :B].reshape(-1)
+    cy = torch.arange(H, device=device)[:, None].expand(H, B).reshape(-1)
+    count = torch.sum(cm, dim=1)
+    corner_ok = (torch.arange(B, device=device)[None] < count[:, None])
+    return cx, cy, corner_ok.reshape(-1)
+
+
+def epipolar_search_cands(slam_map: SLAMMap, src_kf, target_kf, cam,
+                          level: int, config: SLAMConfig, cand_xy,
+                          cand_ok) -> EpipolarResult:
+    """epipolar_search over an explicit candidate slab cand_xy [C, 2]
+    (level coords, float), cand_ok [C]. src_kf and target_kf are host ints
+    or 0-d tensors."""
+    mc, pc_cfg = config.mapmaker, config.patch
+    kfs = slam_map.keyframes
+    dtype, device = kfs.t.dtype, kfs.t.device
+    scale = level_scale(level)
+    src, tgt = _slot_index(src_kf, device), _slot_index(target_kf, device)
+
+    C = cand_xy.shape[0]
+    root = level_zero_pos(cand_xy, level)  # [C, 2] level-0
+    Rs, ts = _slot(kfs.R, src), _slot(kfs.t, src)
+    Rt, tt = _slot(kfs.R, tgt), _slot(kfs.t, tgt)
+
+    # Source rays (normalized) rotated into the target camera.
+    m_src = cam_ops.unproject(cam, root)
+    ray_sc = torch.cat([m_src, torch.ones(C, 1, dtype=dtype, device=device)],
+                       dim=-1)
+    ray_sc = ray_sc / torch.linalg.vector_norm(ray_sc, dim=-1, keepdim=True)
+    line_dir = ray_sc @ (Rt @ Rs.T).T
+
+    # Depth range clamp (MapMaker.cc:552-568).
+    d_mean = _slot(kfs.depth_mean, src)
+    d_sigma = _slot(kfs.depth_sigma, src)
+    start_d = torch.clamp(d_mean - d_sigma, min=mc.wiggle_scale)
+    end_d = torch.clamp(d_mean + d_sigma,
+                        max=mc.epipolar_depth_max_factor * mc.wiggle_scale)
+    cam_center_tc = Rt @ -(Rs.T @ ts) + tt
+    ray_start = cam_center_tc[None] + start_d * line_dir
+    ray_end = cam_center_tc[None] + end_d * line_dir
+
+    ok = (cand_ok & (ray_end[:, 2] > ray_start[:, 2])
+          & (ray_end[:, 2] > 0.0))
+    # Nudge starts behind the camera (MapMaker.cc:577-579).
+    need_nudge = ray_start[:, 2] <= 0.0
+    safe_dz = torch.where(torch.abs(line_dir[:, 2]) < 1e-12, 1e-12,
+                          line_dir[:, 2])
+    nudge = (0.001 - ray_start[:, 2]) / safe_dz
+    ray_start = torch.where(need_nudge[:, None],
+                            ray_start + line_dir * nudge[:, None], ray_start)
+
+    a2 = ray_start[:, :2] / ray_start[:, 2:3]
+    b2 = ray_end[:, :2] / ray_end[:, 2:3]
+    along = a2 - b2
+    seg_len_sq = torch.sum(along * along, dim=-1)
+    ok = ok & (seg_len_sq >= 1e-8)
+    along = along / torch.sqrt(torch.clamp(seg_len_sq, min=1e-20))[:, None]
+    normal = torch.stack([along[:, 1], -along[:, 0]], dim=-1)
+    norm_dist = torch.sum(a2 * normal, dim=-1)
+    ok = ok & (torch.abs(norm_dist) <= cam_ops.largest_radius_in_image(cam))
+    proj_a = torch.sum(along * a2, dim=-1)
+    proj_b = torch.sum(along * b2, dim=-1)
+    min_len = torch.clamp(torch.minimum(proj_a, proj_b) - 0.05, -2.0, 2.0)
+    max_len = torch.clamp(torch.maximum(proj_a, proj_b) + 0.05, -2.0, 2.0)
+
+    # Templates: no-warp patches at the candidates (MapMaker.cc:604-609).
+    hp = pc_cfg.half_patch_size
+    tmpl = match.make_templates_nowarp(kfs.pyramid[level], src.expand(C),
+                                       cand_xy, hp)
+    ok = ok & ~tmpl.bad
+
+    # Target corners: a list capped per image row (the reference scans the
+    # corners near the line, MapMaker.cc:527-540, :611-634). Each corner's
+    # patch is gathered once; the candidate x corner cross term is one
+    # [C, P^2] x [P^2, M] product, and the epipolar band a [C, M] mask.
+    img_t = _slot(kfs.pyramid[level], tgt)
+    H, W = img_t.shape
+    n_pix = (2 * hp + 1) ** 2
+    # A ZMSSD patch must lie inside the image: interior corners only.
+    cm = torch.zeros(H, W, dtype=torch.bool, device=device)
+    cm[hp:H - hp, hp:W - hp] = _slot(kfs.corner_mask[level],
+                                     tgt)[hp:H - hp, hp:W - hp]
+    cx, cy, corner_ok = _row_corner_list(cm, EPI_CORNERS_PER_ROW)
+
+    czero = level_zero_pos(torch.stack([cx, cy], dim=-1).to(dtype), level)
+    implane_m = cam_ops.unproject(cam, czero)  # [M, 2]
+    dist_diff = norm_dist[:, None] - normal @ implane_m.T
+    max_dd = cam_ops.one_pixel_dist(cam) * (4.0 + 1.0 * scale)
+    along_proj = along @ implane_m.T
+    band = ((dist_diff * dist_diff <= max_dd * max_dd)
+            & (along_proj >= min_len[:, None])
+            & (along_proj <= max_len[:, None]) & corner_ok[None])  # [C, M]
+
+    # ZMSSD by expansion: sum I^2 + sum T^2 - 2 I.T - (sum T - sum I)^2/n.
+    # The corners are interior, so the sums over their gathered patches are
+    # the image's window sums there.
+    r = torch.arange(-hp, hp + 1, device=device)
+    patches = img_t[(cy[:, None, None] + r[None, :, None]).clamp(0, H - 1),
+                    (cx[:, None, None] + r[None, None, :]).clamp(0, W - 1)]
+    patches = patches.reshape(-1, n_pix)  # [M, P^2]
+    sum_m = torch.sum(patches, dim=1)
+    sumsq_m = torch.sum(patches * patches, dim=1)
+    cross = tmpl.data.reshape(C, -1) @ patches.T
+    ssd = (sumsq_m[None] + tmpl.t_sumsq[:, None] - 2.0 * cross
+           - (tmpl.t_sum[:, None] - sum_m[None]) ** 2 / n_pix)
+    ssd = torch.where(band & ok[:, None], ssd, torch.inf)
+    best_ssd, best = torch.min(ssd, dim=1)  # [C]
+    ok = ok & (best_ssd < pc_cfg.max_ssd_per_pixel * n_pix)
+    best_zero = level_zero_pos(
+        torch.stack([cx[best], cy[best]], dim=-1).to(dtype), level)
+
+    # Subpixel refinement in the target (MapMaker.cc:636-646).
+    sp = match.iterate_subpix(
+        img_t, tmpl, best_zero,
+        torch.full((C,), level, dtype=torch.int32, device=device), ok,
+        max_iters=pc_cfg.subpix_max_iters, half_patch=hp,
+        conv_limit=pc_cfg.subpix_converged,
+    )
+    ok = ok & sp.converged
+
+    # Triangulate from both world poses; the point must lie in front of
+    # both cameras (as MapMaker.cc:313-316 asks of the stereo init).
+    m_t = cam_ops.unproject(cam, sp.pos_zero)
+    Rs_b, ts_b = Rs.expand(C, 3, 3), ts.expand(C, 3)
+    Rt_b, tt_b = Rt.expand(C, 3, 3), tt.expand(C, 3)
+    pos_w = triangulate.triangulate(Rs_b, ts_b, Rt_b, tt_b, m_src, m_t)
+    ok = (ok & (triangulate.depth_in_camera(Rs_b, ts_b, pos_w) > 0)
+          & (triangulate.depth_in_camera(Rt_b, tt_b, pos_w) > 0))
+    return EpipolarResult(success=ok, pos_w=pos_w, src_uv=root,
+                          target_uv=sp.pos_zero)
 
 
 def insert_new_points(slam_map: SLAMMap, cam, res: EpipolarResult,
@@ -301,3 +548,78 @@ def calc_plane_aligner(slam_map: SLAMMap, config: SLAMConfig, trial_idx=None,
     R = torch.stack([row0, row1, normal])
     t = -(R @ mean_in)
     return R, t, torch.sum(live) >= 10
+
+
+# ---------------------------------------------------------------------------
+# Bundle-adjustment set selection, problem construction and write-back
+# (MapMaker.cc:776-960)
+# ---------------------------------------------------------------------------
+
+
+def build_ba_problem(slam_map: SLAMMap, adjust_mask,
+                     config: SLAMConfig) -> bundle_mod.BAProblem:
+    """BAProblem over the keyframes in `adjust_mask` [K] (free), every
+    other valid keyframe fixed; its points are those the adjust set
+    observes (the rest are excluded through point_valid)."""
+    pts, kfs, meas = slam_map.points, slam_map.keyframes, slam_map.meas
+    obs_in_adjust = meas.valid & adjust_mask[meas.kf.long()]
+    pt_in = torch.any(obs_in_adjust, dim=1) & pts.live()
+    # Fixed: valid keyframes outside the adjust set (a non-observer only
+    # adds empty rows to S) and the permanently fixed first keyframe.
+    fixed = kfs.valid & (~adjust_mask | kfs.fixed)
+    noise = 2.0 ** meas.level.to(pts.pos_w.dtype)
+    return bundle_mod.BAProblem(
+        cam_R=kfs.R, cam_t=kfs.t, cam_fixed=fixed | ~kfs.valid,
+        cam_valid=kfs.valid, points=pts.pos_w, point_valid=pt_in,
+        meas_kf=meas.kf, meas_uv=meas.uv,
+        meas_sqrt_inv_noise=torch.where(meas.valid, 1.0 / noise, 1.0),
+        meas_valid=meas.valid & pt_in[:, None],
+    )
+
+
+def local_ba_adjust_mask(slam_map: SLAMMap, newest_kf, config: SLAMConfig):
+    """BundleAdjustRecent's adjust set [K]: the newest keyframe and its 4
+    nearest neighbours (MapMaker.cc:801-824); equally near ones go by the
+    lower slot. Callers skip local BA below local_ba_min_kfs keyframes, as
+    the reference does."""
+    kfs = slam_map.keyframes
+    newest = _slot_index(newest_kf, kfs.t.device)
+    d = keyframe_distances(kfs, _slot(kfs.R, newest), _slot(kfs.t, newest))
+    d = d.index_fill(0, newest, torch.inf)
+    nearest = torch.sort(d, stable=True).indices[
+        :config.mapmaker.local_ba_neighbors]
+    mask = torch.zeros(kfs.n_slots, dtype=torch.bool, device=d.device)
+    mask[torch.cat([newest, nearest])] = True
+    return mask & kfs.valid & ~kfs.fixed
+
+
+def apply_ba_result(slam_map: SLAMMap, prob: bundle_mod.BAProblem,
+                    res: bundle_mod.BAResult, config: SLAMConfig):
+    """Write a BAResult back into the map and route the ejected
+    measurements (MapMaker.cc:906-959): a point dies if it lost a
+    measurement and keeps 2 or fewer, or if its SRC_ROOT measurement was
+    ejected; ejected SRC_TRACKER / SRC_EPIPOLAR measurements of surviving
+    points may be retried, the others never. `prob` is the problem as
+    build_ba_problem made it; `res` may come from a run on a part of it.
+    Returns (map, retry [N, O], never [N, O], point_dies [N])."""
+    pts, kfs, meas = slam_map.points, slam_map.keyframes, slam_map.meas
+    kfs = kfs.replace(R=res.cam_R, t=res.cam_t)
+    ej = res.outlier_meas
+    remaining = torch.sum(res.meas_valid.to(torch.int32), dim=1)
+    root_ejected = torch.any(ej & (meas.source == SRC_ROOT), dim=1)
+    point_dies = pts.valid & (
+        (torch.any(ej, dim=1) & (remaining <= 2)) | root_ejected
+    )
+    survives = ~point_dies[:, None]
+    retry = ej & survives & ((meas.source == SRC_TRACKER)
+                             | (meas.source == SRC_EPIPOLAR))
+    never = ej & ~retry & survives
+    # Only what the problem held can have been ejected: a measurement the
+    # problem left out (its point is seen by no adjusted keyframe, or the
+    # run covered a prefix of the slots) stays as it was.
+    kept = (meas.valid & ~prob.meas_valid) | res.meas_valid
+    meas = meas.replace(valid=kept & survives)
+    pts = pts.replace(pos_w=res.points, valid=pts.valid & ~point_dies)
+    pts = map_store.refresh_pixel_vectors(pts, kfs)
+    return (slam_map.replace(points=pts, keyframes=kfs, meas=meas), retry,
+            never, point_dies)

@@ -3,9 +3,10 @@
 Port of the JAX package's ``ops/camera.py`` (the reference's
 ``ATANCamera``, jni/ATANCamera.{h,cc}): project / unproject between the
 z=1 camera plane and distorted pixels (ATANCamera.cc:133-164), the 2x2
-projection Jacobian (ATANCamera.cc:198-231) and the largest visible
-radius. The JAX package takes the Jacobian by forward-mode AD; here it is
-written out in closed form (same function, same branches).
+projection Jacobian (ATANCamera.cc:198-231), the largest visible radius,
+the one-pixel distance and the in-image test. The JAX package takes the
+Jacobian by forward-mode AD; here it is written out in closed form (same
+function, same branches).
 """
 
 from __future__ import annotations
@@ -14,7 +15,10 @@ import dataclasses
 
 import torch
 
-from visualslam_android_tpu_torch.utils.tensors import TensorTree
+from visualslam_android_tpu_torch.utils.tensors import (
+    TensorTree,
+    default_device,
+)
 
 _EPS = 1e-9
 
@@ -36,10 +40,12 @@ class Camera(TensorTree):
     size: torch.Tensor            # [2] (W, H) as float
 
 
-def make_camera(params, width: int, height: int, device="cpu",
+def make_camera(params, width: int, height: int, device=None,
                 dtype=torch.float32) -> Camera:
     """Camera from normalized (fx, fy, cx, cy, w) and an image size, with
-    the -0.5 pixel-center offset of ATANCamera::RefreshParams."""
+    the -0.5 pixel-center offset of ATANCamera::RefreshParams, on `device`
+    (the CUDA card when None)."""
+    device = default_device(device)
     fx, fy, cx, cy, w = [torch.tensor(p, dtype=dtype, device=device)
                          for p in params]
     return Camera(
@@ -116,6 +122,21 @@ def project_derivs(cam: Camera, m):
     eye = torch.eye(2, dtype=m.dtype, device=m.device)
     jac = cam.focal[:, None] * (factor[..., None, None] * eye + outer)
     return px, jac
+
+
+def in_image(cam: Camera, v, border=0.0):
+    """Pixel inside the frame with a border margin (in_image_with_border,
+    vision/ImageHandler.cpp:120-122)."""
+    return torch.all((v >= border) & (v < cam.size - border), dim=-1)
+
+
+def one_pixel_dist(cam: Camera):
+    """Camera-plane distance of one pixel at the image center
+    (ATANCamera's mdOnePixelDist)."""
+    c = cam.center
+    step = torch.stack([torch.ones_like(c[0]), torch.zeros_like(c[0])])
+    return torch.linalg.vector_norm(unproject(cam, c + step)
+                                    - unproject(cam, c))
 
 
 def largest_radius_in_image(cam: Camera):

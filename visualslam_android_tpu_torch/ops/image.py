@@ -24,6 +24,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from visualslam_android_tpu_torch.utils.tensors import default_device
+
 
 def half_sample(img):
     """2x2 block mean (the reference's half-size resize,
@@ -61,8 +63,10 @@ def bilinear_sample(img, xy):
     return (1 - fy) * top + fy * bot
 
 
-def patch_grid(half_size, device="cpu", dtype=torch.float32):
-    """[(2h+1)^2, 2] grid of (x, y) offsets centered on 0, row-major."""
+def patch_grid(half_size, device=None, dtype=torch.float32):
+    """[(2h+1)^2, 2] grid of (x, y) offsets centered on 0, row-major, on
+    `device` (the CUDA card when None)."""
+    device = default_device(device)
     r = torch.arange(-half_size, half_size + 1, device=device)
     ys, xs = torch.meshgrid(r, r, indexing="ij")
     return torch.stack([xs.reshape(-1), ys.reshape(-1)], dim=-1).to(dtype)

@@ -1,9 +1,43 @@
-"""Closed-form 3x3 inverse (port of ``inv3x3`` from the JAX package's
-``ops/wls.py``), used for the subpixel inverse-composition Hessians."""
+"""Weighted least-squares normal equations and small dense solves.
+
+Port of the JAX package's ``ops/wls.py`` (the reference's ``myWLS<N>``,
+jni/myWLS.h:29-66): J^T W J and J^T W e over all residuals at once with an
+optional diagonal prior, solved by a Cholesky factorization; and the
+closed-form 3x3 inverse that the subpixel Hessians and the bundle
+adjustment's point blocks use.
+"""
 
 from __future__ import annotations
 
 import torch
+
+
+def solve_spd(A, b, ridge=1e-9):
+    """Cholesky solve of a symmetric positive-definite system, batched:
+    A [..., n, n], b [..., n]. A matrix that does not factor gives NaN, as
+    the JAX package's does, and raises nothing."""
+    n = A.shape[-1]
+    A = A + ridge * torch.eye(n, dtype=A.dtype, device=A.device)
+    L, info = torch.linalg.cholesky_ex(A)
+    x = torch.cholesky_solve(b[..., None], L)[..., 0]
+    return torch.where((info == 0)[..., None], x, torch.nan)
+
+
+def solve_normal_equations(J, e, w=None, prior=0.0, ridge=1e-9):
+    """Solve (J^T W J + prior*I) x = J^T W e over batched rows.
+
+    J: [..., M, N] stacked Jacobian rows; e: [..., M] residuals; w:
+    [..., M] weights (None for unit weights); prior: scalar diagonal prior
+    (myWLS::add_prior, myWLS.h:29-33). Returns (x [..., N], A [..., N, N]),
+    A being the prior-augmented information matrix, as myWLS exposes its
+    accumulator."""
+    Jw = J if w is None else J * w[..., None]
+    A = Jw.transpose(-1, -2) @ J
+    b = (Jw.transpose(-1, -2) @ e[..., None])[..., 0]
+    n = J.shape[-1]
+    A = A + (prior + ridge) * torch.eye(n, dtype=J.dtype, device=J.device)
+    # A already carries the ridge.
+    return solve_spd(A, b, ridge=0.0), A
 
 
 def inv3x3(A):

@@ -19,6 +19,7 @@ from visualslam_android_tpu_torch.models import keyframe as kf_mod
 from visualslam_android_tpu_torch.models import map_store
 from visualslam_android_tpu_torch.ops import camera as cam_ops
 from visualslam_android_tpu_torch.utils import synthetic
+from visualslam_android_tpu_torch.utils.tensors import default_device
 
 
 def small_config(width=320, height=240) -> SLAMConfig:
@@ -42,12 +43,14 @@ def full_config() -> SLAMConfig:
 
 
 def build_fixed_map(config: SLAMConfig, rng, per_level=(60, 40, 24, 12),
-                    depth=4.0, px_per_m=120.0, device="cpu"):
+                    depth=4.0, px_per_m=120.0, device=None):
     """One-keyframe map with exact ground-truth plane points made from the
     keyframe's Shi-Tomasi candidates (up to per_level[l] at level l).
 
-    Returns (slam_map, cam, scene, (R0, t0), n_points).
+    Built on `device` (the CUDA card when None). Returns (slam_map, cam,
+    scene, (R0, t0), n_points).
     """
+    device = default_device(device)
     tc = config.tracker
     cam = cam_ops.make_camera(config.camera.params(), tc.width, tc.height,
                               device=device)

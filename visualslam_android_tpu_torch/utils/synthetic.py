@@ -17,7 +17,10 @@ import torch
 from visualslam_android_tpu_torch.ops import camera as cam_ops
 from visualslam_android_tpu_torch.ops import image as img_ops
 from visualslam_android_tpu_torch.ops import lie
-from visualslam_android_tpu_torch.utils.tensors import TensorTree
+from visualslam_android_tpu_torch.utils.tensors import (
+    TensorTree,
+    default_device,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,8 +40,10 @@ class PlanarScene(TensorTree):
 
 
 def make_planar_scene(rng, depth=4.0, tex_size=1024, px_per_m=160.0,
-                      n_blobs=400, blur=1.0, device="cpu") -> PlanarScene:
-    """Corner-rich random texture: rectangles of random intensity."""
+                      n_blobs=400, blur=1.0, device=None) -> PlanarScene:
+    """Corner-rich random texture: rectangles of random intensity, on
+    `device` (the CUDA card when None)."""
+    device = default_device(device)
     tex = np.full((tex_size, tex_size), 128.0, np.float32)
     for _ in range(n_blobs):
         x = rng.integers(0, tex_size - 40)
@@ -91,9 +96,11 @@ def plane_point_from_pixel(scene: PlanarScene, cam: cam_ops.Camera, R, t,
 
 
 def look_at_pose(position, target=(0.0, 0.0, 4.0), up=(0.0, -1.0, 0.0),
-                 device="cpu"):
+                 device=None):
     """Camera-from-world (R, t) for a camera at `position` looking at
-    `target` (z forward, x right, y down); computed in float64 numpy."""
+    `target` (z forward, x right, y down); computed in float64 numpy and
+    placed on `device` (the CUDA card when None)."""
+    device = default_device(device)
     pos = np.asarray(position, np.float64)
     tgt = np.asarray(target, np.float64)
     fwd = tgt - pos

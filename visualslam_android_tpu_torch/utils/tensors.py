@@ -18,6 +18,20 @@ def const(values, device, dtype=torch.float32):
     return torch.tensor(values, dtype=dtype, device=device)
 
 
+def default_device(device=None) -> torch.device:
+    """The device a constructor of this package builds its state on: the
+    one the caller names, else the CUDA card. Without a card there is no
+    silent fall-back to the CPU: the caller asks for it by name."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available and no device was named: pass "
+            'device="cpu" to build and run on the CPU'
+        )
+    return torch.device("cuda")
+
+
 def _move(value, device):
     if isinstance(value, torch.Tensor):
         return value.to(device)
