@@ -60,19 +60,46 @@ bundle adjustment at the map's full capacities.
    point count within 5%, rms within 10%, keyframe 1's pose within 5e-3.
    The card's run is the second in the process: its stage times are the
    warm ones, with the growth split by level into thinning, corner list,
-   ZMSSD, subpixel and triangulation;
+   ZMSSD, subpixel and triangulation. Then the last tracked frame of phase
+   7 becomes keyframe 2 of the map it tracked on, on the card and on the
+   CPU from copies of the same inputs: integrate_keyframe, growth at levels
+   3, 0, 1, 2 (which must insert points on both), one refind_newly and one
+   local bundle adjustment round, compared by outcome;
 9. bundle adjustment at full state size: a problem made from a seed with
    numpy at the map's capacities (32 cameras, one fixed; 2048 points; up to
    16 observations each; 0.3 px of noise; 5% of the measurements moved by
    30-60 px): bundle_adjust(max_iters=20) on the card must bring the rms
    to the noise level and eject the moved measurements, and agree with the
    same run on the CPU by objective and rms; one LM iteration is timed by
-   stage with CUDA events.
+   stage with CUDA events;
+10. full SLAM through the facade (models/slam.SLAMSystem, sync mode) at
+   the default SLAMConfig (800x480, 4096 point slots, 64 keyframe slots),
+   on bench.py's 120-frame synthetic sequence (seed 11, px_per_m 240) with
+   touches at frames 0 and 6, then 4 blank frames and the camera back at
+   the pose of frame 100 for 8 frames. The bootstrap must finish by frame
+   8, more than 90 of the 120 frames must track, keyframes must be added
+   after the bootstrap's two, the ATE must stay under 2% of the
+   trajectory's span, every task the scheduler reaches must run, tracking
+   must be lost on the blank frames, relocalize on the first real frame
+   after them and track GOOD after;
+   no result may hold a NaN; fast_detect_levels must launch once per
+   front-end run and fast_nonmax_levels once per keyframe inserted. Each
+   mapping task is timed from here between two device synchronisations,
+   and the facade's device-to-host reads are counted per tracked frame.
+   The first keyframe integration (integrate_keyframe, growth at levels 3,
+   0, 1, 2, one refind_newly, one local bundle adjustment round) and the
+   relocalization are then replayed from a copy of their inputs on the
+   card and on the CPU and compared by outcome. On this sequence the growth
+   there inserts nothing on either side (the scene lies past the epipolar
+   depth cap of its 3 cm bootstrap baseline), so phase 8's replay is the
+   one that holds growth on the card to the CPU. After the checks the same
+   facade goes on for 10 frames, nothing wrapped, under torch.profiler: the
+   device's busy share.
 
 Any failed check raises and the script exits non-zero. The last two lines
 of standard output are a JSON object describing the kernels (`launches`
-is the sum over phases 4, 7 and 9, `launches_by_path` gives each) and the
-``{"ok": true, "device": ...}`` line. It imports no jax.
+is the sum over phases 4, 7, 9 and 10, `launches_by_path` gives each) and
+the ``{"ok": true, "device": ...}`` line. It imports no jax.
 """
 
 from __future__ import annotations
@@ -127,6 +154,27 @@ BA_RMS_BEFORE = 2.0
 BA_RMS_AFTER = 0.6
 BA_EJECTED_SHARE = 0.95    # of the moved measurements
 BA_AGREE = 0.02            # card vs CPU: objective and rms, relative
+# Full SLAM (phase 10): bench.py's _full_slam_fps sequence and its bound on
+# tracked frames, test_slam.py's ATE bound, its relocalization pattern.
+SLAM_FRAMES = 120
+SLAM_MIN_TRACKED = 90        # of SLAM_FRAMES
+SLAM_BOOT_BY = 8             # first tracking frame at the latest
+SLAM_ATE_SHARE = 0.02        # of the trajectory's span
+SLAM_BLANKS = 4
+SLAM_RETURN_TO = 100         # the frame whose pose the camera comes back to
+SLAM_AFTER = 8               # frames shown after the blanks
+# A keyframe integration replayed on the card and on the CPU, by outcome:
+# measurement counts within 1%, the (point, keyframe) pairs with a
+# measurement agreeing on 98% of those either side has, the points the four
+# growth levels add within 2, the rms after a local bundle adjustment within
+# BOOT_RMS_AGREE; the relocalizer's pose within 1e-4.
+KF_MEAS_AGREE = 0.01
+KF_PAIRS_AGREE = 0.98
+KF_NEW_POINTS_SLACK = 2
+RELOC_POSE_ATOL = 1e-4
+# After phase 10's checked run, its facade goes on for PROFILE_FRAMES frames
+# with nothing wrapped, under torch.profiler: the device's busy share.
+PROFILE_FRAMES = 10
 # Published peaks of one H100 SXM: HBM3 rate and f32 rate outside the tensor
 # cores.
 H100_BYTES_PER_S = 3.35e12
@@ -424,7 +472,7 @@ def run_trails(frames, config, bootstrap, frame_step):
 
 def track_on(init, sbi, frames, cam, config, frame_step, generator):
     """frame_step over `frames` from the state init_from_stereo made.
-    Returns per-frame (R, t, stats)."""
+    Returns per-frame (R, t, stats) and the last frame's whole output."""
     N = config.tracker.max_map_points
     K = config.mapmaker.max_keyframes
     device = frames[0].device
@@ -443,7 +491,7 @@ def track_on(init, sbi, frames, cam, config, frame_step, generator):
             o.slam_map, o.R, o.t, o.velocity, o.msd, o.depth, o.sbi,
             o.new_points)
         outs.append((o.R, o.t, o.stats))
-    return outs
+    return outs, o
 
 
 def relative_pose(Ra, ta, Rb, tb):
@@ -560,8 +608,8 @@ def phase_bootstrap(device, card, fast, bootstrap, frame_step, tracker,
           f"{mc.plane_inlier_threshold}")
     check(share >= 0.9, f"only {share} of the points lie on the plane z = 0")
 
-    outs = track_on(init, sbi, frames[N_TRAIL_FRAMES + 1:], cam, config,
-                    frame_step, gen)
+    outs, last = track_on(init, sbi, frames[N_TRAIL_FRAMES + 1:], cam,
+                          config, frame_step, gen)
     torch.cuda.synchronize()
     launches = dict(fast.LAUNCHES)
     stats = torch.stack([o[2] for o in outs]).cpu().numpy()
@@ -602,7 +650,13 @@ def phase_bootstrap(device, card, fast, bootstrap, frame_step, tracker,
     check(launches["fast_detect"] == 0,
           f"the single-image wrapper launched {launches['fast_detect']} "
           f"times on a path that gives all levels to one launch")
-    return config, cam, frames, trails, second, init, launches
+    # integrate_keyframe's inputs for the last tracked frame as keyframe 2
+    # of the map it tracked on (replayed by phase 8).
+    kf_args = (last.slam_map, init.new_points, init.never_retry,
+               init.failure_mask, last.frame, last.R, last.t, last.found,
+               last.found_pos, last.search_level, last.did_subpix, 2, cam,
+               config)
+    return config, cam, frames, trails, second, init, launches, kf_args
 
 
 def map_rms(slam_map, cam, config, mapmaker, bundle):
@@ -1002,19 +1056,416 @@ def phase_ba_full(device, card, config, bundle, cam_ops, lie, mestimator,
           f"{ms_lin + ms_schur + ms_solve + ms_back:.3f} ms  [{card}]")
 
 
+def sync(device):
+    """Wait for the device; not counted as a read of the path (the sync
+    debug mode that phase 10 runs under is off around it)."""
+    if torch.device(device).type == "cuda":
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode(mode)
+
+
+@contextlib.contextmanager
+def flagged_syncs(device):
+    """Records every synchronising CUDA call PyTorch makes while open
+    (torch.cuda.set_sync_debug_mode("warn")): the yielded list holds one
+    (file, line) per call, the Python line that made it."""
+    calls = []
+    if torch.device(device).type != "cuda":
+        yield calls
+        return
+    import warnings
+
+    def record(message, category, filename, lineno, *args, **kwargs):
+        if "synchroniz" in str(message):
+            calls.append((filename.rsplit("/", 1)[-1], lineno))
+        else:
+            shown(message, category, filename, lineno, *args, **kwargs)
+
+    shown = warnings.showwarning
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield calls
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            warnings.showwarning = shown
+
+
+@contextlib.contextmanager
+def recorded_facade(sys_, fstep, relocalizer, mapping_task_names):
+    """While open, the facade's mapping tasks run between two device
+    synchronisations and land in the yielded record by kind (ms list) and
+    by frame, the bundle-adjustment rounds by mode, and copies of the
+    inputs of the first
+    keyframe integration and of the last relocalization attempt are kept
+    (for the card-against-CPU replays)."""
+    dev = sys_.device
+    rec = {"tasks": {}, "task_of_frame": {}, "ba_modes": {},
+           "integrate": None, "reloc": None}
+    step = sys_._mapmaker_step
+
+    def timed_step():
+        sync(dev)
+        t0 = time.perf_counter()
+        task = step()
+        sync(dev)
+        name = mapping_task_names[task]
+        rec["tasks"].setdefault(name, []).append(
+            1e3 * (time.perf_counter() - t0))
+        rec["task_of_frame"][sys_.frame_idx - 1] = name
+        return task
+
+    def keep(value):
+        return value.clone() if hasattr(value, "clone") else value
+
+    integrate, ba_round = fstep.integrate_keyframe, fstep.ba_round
+    attempt = relocalizer.attempt_recovery
+
+    def integrate_kept(*args):
+        if rec["integrate"] is None:
+            rec["integrate"] = tuple(keep(a) for a in args)
+        return integrate(*args)
+
+    def ba_counted(*args, mode, **kwargs):
+        key = mode + (" (bootstrap prefix)" if kwargs.get("cap") else "")
+        rec["ba_modes"][key] = rec["ba_modes"].get(key, 0) + 1
+        return ba_round(*args, mode=mode, **kwargs)
+
+    def attempt_kept(slam_map, template, cam, max_score):
+        rec["reloc"] = (slam_map.clone(), template.clone(), cam, max_score)
+        return attempt(slam_map, template, cam, max_score)
+
+    sys_._mapmaker_step = timed_step
+    fstep.integrate_keyframe, fstep.ba_round = integrate_kept, ba_counted
+    relocalizer.attempt_recovery = attempt_kept
+    try:
+        yield rec
+    finally:
+        sys_._mapmaker_step = step
+        fstep.integrate_keyframe, fstep.ba_round = integrate, ba_round
+        relocalizer.attempt_recovery = attempt
+
+
+def slam_sequence(device, datasets, synthetic):
+    """bench.py's full-SLAM sequence on the card, then SLAM_BLANKS grey
+    frames and SLAM_AFTER frames from the pose of frame SLAM_RETURN_TO on.
+    Returns (images, truth poses, camera)."""
+    images, poses, _, cam, scene = datasets.make_synthetic_sequence(
+        np.random.default_rng(11), n_frames=SLAM_FRAMES, size=(800, 480),
+        px_per_m=240.0, device=device)
+    blank = torch.full((480, 800), 127.0, device=device)
+    images = images + [blank] * SLAM_BLANKS
+    poses = poses + [poses[SLAM_FRAMES - 1]] * SLAM_BLANKS
+    for k in range(SLAM_AFTER):
+        R, t = poses[SLAM_RETURN_TO + k]
+        images.append(synthetic.render(scene, cam, R, t, (480, 800)))
+        poses.append((R, t))
+    return images, poses, cam
+
+
+def phase_full_slam(device, card, fast, slam, fstep, relocalizer,
+                    native_runtime, bundle, datasets, synthetic, ate):
+    """Full SLAM through the facade on the card: the checks of phase 10 in
+    the module docstring. Returns (launches, the frames, the record)."""
+    from visualslam_android_tpu_torch.config import SLAMConfig
+
+    images, poses, cam = slam_sequence(device, datasets, synthetic)
+    sys_ = slam.SLAMSystem(SLAMConfig(), seed=0, device=device)
+    sync(device)
+    for name in fast.LAUNCHES:
+        fast.LAUNCHES[name] = 0
+    results, reads, syncs = [], [], []
+    with recorded_facade(sys_, fstep, relocalizer,
+                         native_runtime.TASK_NAMES) as rec, \
+            flagged_syncs(device) as flagged:
+        t_wall = time.perf_counter()
+        for k, img in enumerate(images):
+            if k in (0, 6):
+                sys_.on_touch()
+            before = dict(sys_.host_reads,
+                          ba=bundle.HOST_READS["bundle_adjust"])
+            n_flagged = len(flagged)
+            results.append(sys_.track_frame(img))
+            after = dict(sys_.host_reads,
+                         ba=bundle.HOST_READS["bundle_adjust"])
+            reads.append({k2: after[k2] - before[k2] for k2 in after})
+            syncs.append(flagged[n_flagged:])
+        sync(device)
+        wall = time.perf_counter() - t_wall
+    launches = dict(fast.LAUNCHES)
+
+    main = results[:SLAM_FRAMES]
+    phases = [r.phase for r in main]
+    check(slam.PHASE_TRACKING in phases, "the bootstrap never finished")
+    first = phases.index(slam.PHASE_TRACKING)
+    tracked = [k for k, r in enumerate(main)
+               if r.phase == slam.PHASE_TRACKING and not r.lost]
+    est = ate.camera_centers([r.pose_R for r in main[first:]],
+                             [r.pose_t for r in main[first:]])
+    truth = poses[first:SLAM_FRAMES]
+    gtc = ate.camera_centers([R.cpu().numpy() for R, _ in truth],
+                             [t.cpu().numpy() for _, t in truth])
+    rmse, _ = ate.ate_rmse(est, gtc)
+    span = float(np.linalg.norm(gtc.max(0) - gtc.min(0)))
+    n_kf = [r.n_keyframes for r in results]
+    tracking = [k for k, r in enumerate(results)
+                if r.phase == slam.PHASE_TRACKING and k > first]
+    n_reads = {key: sum(reads[k][key] for k in tracking) for key in reads[0]}
+    print(f"full SLAM: bootstrap done at frame {first}, {len(tracked)} of "
+          f"{SLAM_FRAMES} frames tracked, {main[-1].n_points} points and "
+          f"{main[-1].n_keyframes} keyframes at frame {SLAM_FRAMES - 1} "
+          f"({n_kf[-1]} at the end), ATE {rmse:.6f} over a span of "
+          f"{span:.6f} ({100 * rmse / span:.4f}%)")
+    print(f"full SLAM: {len(results)} frames in {wall:.3f} s = "
+          f"{len(results) / wall:.3f} frames/s, bootstrap frames and per-task "
+          f"synchronisations included (no claim)  [{card}]")
+    print(f"full SLAM: host reads over the {len(tracking)} frames after the "
+          f"bootstrap: {n_reads} = "
+          f"{sum(n_reads.values()) / max(len(tracking), 1):.3f} per frame; "
+          f"stats reads {n_reads['stats']} for {len(tracking)} frames")
+    if torch.device(device).type == "cuda":
+        where = {}
+        for k in tracking:
+            for call in syncs[k]:
+                where[call] = where.get(call, 0) + 1
+        print(f"full SLAM: synchronising calls PyTorch flagged over those "
+              f"frames: {sum(where.values())} (reads counted: "
+              f"{sum(n_reads.values())}); by line: "
+              f"{sorted(where.items(), key=lambda kv: -kv[1])}")
+        # A tracked frame whose mapping task was "none" synchronises only in
+        # its stats read (and a relocalization read). The first frames
+        # after the bootstrap also fill per-shape caches (image._level_meta,
+        # tensors.const), which copy from the host once.
+        quiet = [k for k in tracking if k > first + 3
+                 and rec["task_of_frame"].get(k) == "none"]
+        extra = {k: syncs[k] for k in quiet
+                 if len(syncs[k]) != sum(reads[k].values())}
+        print(f"full SLAM: {len(quiet)} tracked frames with no mapping work, "
+              f"{len(extra)} with a synchronising call besides their reads")
+        check(len(quiet) > 20 and not extra,
+              f"hidden synchronising calls on the tracking path: {extra}")
+    counts = {name: len(ms) for name, ms in rec["tasks"].items()}
+    print(f"full SLAM: mapping tasks dispatched {counts}; bundle-adjustment "
+          f"rounds by mode {rec['ba_modes']}")
+    for name, ms in sorted(rec["tasks"].items()):
+        print(f"  task {name}: {len(ms)} runs, median "
+              f"{statistics.median(ms):.3f} ms, max {max(ms):.3f} ms, sum "
+              f"{sum(ms):.3f} ms  [{card}]")
+    check(first <= SLAM_BOOT_BY, f"bootstrap finished at frame {first}")
+    check(len(tracked) > SLAM_MIN_TRACKED,
+          f"only {len(tracked)} of {SLAM_FRAMES} frames tracked")
+    check(main[-1].n_keyframes > 2, "no keyframe added after the bootstrap")
+    check(rmse < SLAM_ATE_SHARE * span, f"ATE {rmse} over a span of {span}")
+    for r in results:
+        check(np.isfinite(r.pose_R).all() and np.isfinite(r.pose_t).all(),
+              f"frame {r.frame_id} returned a non-finite pose")
+    reached = set(counts)
+    for name in ("add_keyframe", "refind_newly", "ba_all", "ba_recent"):
+        check(name in reached, f"the scheduler never reached {name}: {counts}")
+    # Five tasks per keyframe integrated, fewer for one still under way.
+    under_way = [e["stage"] for e in sys_.kf_queue if "slot" in e]
+    want_adds = 5 * (n_kf[-1] - 2) - sum(5 - st for st in under_way)
+    check(counts["add_keyframe"] == want_adds,
+          f"{counts['add_keyframe']} add_keyframe tasks for "
+          f"{n_kf[-1] - 2} keyframes ({under_way} under way)")
+    check(n_reads["stats"] == len(tracking) and n_reads["bootstrap"] == 0,
+          f"reads on tracked frames: {n_reads}")
+
+    # Lost on the blanks, relocalized after them, GOOD tracking after that.
+    b0 = SLAM_FRAMES
+    trip = b0 + sys_.config.tracker.max_lost_frames
+    back = b0 + SLAM_BLANKS
+    print("full SLAM, relocalization: " + "; ".join(
+        f"frame {k}: quality {results[k].quality}, lost {results[k].lost}, "
+        f"coarse {results[k].did_coarse}, found {results[k].n_found}, "
+        f"{results[k].message.split(' Found')[0]!r}"
+        for k in range(b0, len(results))))
+    check(all(results[k].quality == 0 for k in range(b0, back)),
+          "a blank frame did not track BAD")
+    check(results[trip].lost, f"tracking not lost at frame {trip}")
+    rec_frame = results[back]
+    check(rec_frame.message.startswith("Relocalized") and not rec_frame.lost
+          and rec_frame.n_found > 20,
+          f"no relocalization at frame {back}: {rec_frame.message}")
+    check(all(r.quality == 2 for r in results[back + 1:]),
+          f"tracking after relocalization not GOOD: "
+          f"{[r.quality for r in results[back + 1:]]}")
+    # The relocalized frame and the next one ask track_map for the coarse
+    # stage; it runs only where more than coarse_min points are searched at
+    # level 2 or above (tests/test_torch_slam.py holds the branch).
+    print(f"full SLAM: coarse stage on the relocalized frame and the next: "
+          f"{rec_frame.did_coarse}, {results[back + 1].did_coarse}")
+    n_reloc = sum(r.message.startswith("Relocalized") for r in results)
+    n_front = len(results) + n_reloc
+    print(f"full SLAM: FAST launches {launches}: {n_front} front-end runs "
+          f"({len(results)} frames + {n_reloc} relocalized frame run twice), "
+          f"{n_kf[-1]} keyframes inserted")
+    check(launches["fast_detect_levels"] == n_front,
+          f"fast_detect_levels launched {launches['fast_detect_levels']} "
+          f"times for {n_front} front-end runs")
+    check(launches["fast_nonmax_levels"] == n_kf[-1],
+          f"fast_nonmax_levels launched {launches['fast_nonmax_levels']} "
+          f"times for {n_kf[-1]} keyframes")
+    check(launches["fast_detect"] == 0, "the single-image wrapper launched")
+    check(rec["integrate"] is not None and rec["reloc"] is not None,
+          "no keyframe integration or relocalization to replay")
+    profile_window(sys_, images[SLAM_RETURN_TO + SLAM_AFTER:][:PROFILE_FRAMES],
+                   device, card)
+    return launches, rec
+
+
+def profile_window(sys_, images, device, card):
+    """The facade goes on along the path over `images`, nothing wrapped,
+    under torch.profiler: wall and device time per frame and the device's
+    busy share (the frames after the checked run; their launches are not
+    counted)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    sync(device)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        results = [sys_.track_frame(img) for img in images]
+        sync(device)
+        window = time.perf_counter() - t0
+    averages = prof.key_averages()
+    device_us = sum(getattr(e, "self_device_time_total", 0.0)
+                    for e in averages)
+    launches = sum(e.count for e in averages if e.key == "cudaLaunchKernel")
+    n = len(images)
+    busy = (f"{100 * device_us / 1e6 / window:.2f}% busy" if device_us > 0
+            else "device time not measured (the profiler saw none)")
+    print(f"full SLAM, {n} more frames under torch.profiler "
+          f"({sum(r.quality == 2 for r in results)} GOOD): "
+          f"{1e3 * window / n:.3f} ms per frame, device time "
+          f"{device_us / 1e3 / n:.3f} ms per frame, {busy}; "
+          f"{launches / n:.1f} cudaLaunchKernel calls per frame  [{card}]")
+
+
+def replay_keyframe(args, device, fstep, slam, bundle):
+    """integrate_keyframe on a copy of its inputs, the four growth levels,
+    one refind_newly and one local bundle adjustment round (the facade's
+    BundleAdjustRecent) on `device`. Returns what the comparison reads."""
+    (sm, new_points, never, failure, frame, R, t, found, pos, level, subpix,
+     slot, cam, config) = (a.to(device) if hasattr(a, "to") else a
+                           for a in args)
+    sm, new_points = sm.clone(), new_points.clone()
+    sm, new_points, never, failure = fstep.integrate_keyframe(
+        sm, new_points, never, failure, frame, R, t, found, pos, level, subpix,
+        slot, cam, config)
+    observed0 = (sm.meas.valid & (sm.meas.kf == slot)).any(1)
+    live0 = sm.points.live()
+    for lvl in slam.SLAMSystem._GROW_LEVELS:
+        sm, new_points = fstep.add_map_points_step(sm, new_points, cam, slot,
+                                                   lvl, config)
+    grown = int((sm.points.live() & ~live0).sum())
+    sm, new_points, never, failure = fstep.refind_newly(
+        sm, new_points, never, failure, cam, config, n_kf=slot + 1)
+    K = sm.keyframes.n_slots
+    pairs = torch.zeros(sm.points.n_slots, K, dtype=torch.int32,
+                        device=sm.meas.kf.device)
+    pairs.scatter_add_(1, sm.meas.kf.long().clamp(0, K - 1),
+                       sm.meas.valid.to(torch.int32))
+    pairs = (pairs > 0) & sm.points.live()[:, None]
+    out = dict(meas=int(sm.meas.count()), observed0=observed0.cpu(),
+               grown=grown, pairs=pairs.cpu(), never=never.cpu())
+    adjust = fstep.mapmaker.local_ba_adjust_mask(sm, slot, config)
+    rms_before = map_rms(sm, cam, config, fstep.mapmaker, bundle)
+    sm, failure, never, conv, ok = fstep.ba_round(
+        sm, slot, never, failure, cam, config, max_iters=8,
+        assembly="scatter", solver="chol", mode="local")
+    out.update(ba_adjusted=int(adjust.sum()), rms_before=rms_before,
+               rms_after=map_rms(sm, cam, config, fstep.mapmaker, bundle),
+               ba_converged=bool(conv), ba_ok=bool(ok))
+    return out
+
+
+def compare_keyframe_replay(args, label, device, card, fstep, slam, bundle,
+                            grows):
+    """replay_keyframe on the card and on the CPU, compared by outcome. With
+    `grows`, the growth levels must insert points on both."""
+    t0 = time.perf_counter()
+    a = replay_keyframe(args, device, fstep, slam, bundle)
+    b = replay_keyframe(args, "cpu", fstep, slam, bundle)
+    both_s = time.perf_counter() - t0
+
+    def agree(x, y):
+        either = x | y
+        return float((x == y)[either].float().mean()) if bool(
+            either.any()) else 1.0
+
+    d_meas = abs(a["meas"] - b["meas"]) / max(b["meas"], 1)
+    print(f"{label}, card vs CPU (slot {args[11]}): measurements {a['meas']} "
+          f"/ {b['meas']}, points seen in the new keyframe agree on "
+          f"{agree(a['observed0'], b['observed0']):.4f}, (point, keyframe) "
+          f"pairs after growth and refind_newly agree on "
+          f"{agree(a['pairs'], b['pairs']):.4f}, grown points {a['grown']} / "
+          f"{b['grown']}, never-retry pairs {int(a['never'].sum())} / "
+          f"{int(b['never'].sum())}; local BA over {a['ba_adjusted']} / "
+          f"{b['ba_adjusted']} keyframes: rms {a['rms_before']:.4f} -> "
+          f"{a['rms_after']:.4f} / {b['rms_before']:.4f} -> "
+          f"{b['rms_after']:.4f}, converged {a['ba_converged']} / "
+          f"{b['ba_converged']} ({both_s:.1f} s for both)  [{card}]")
+    check(d_meas <= KF_MEAS_AGREE, f"measurement counts differ by {d_meas}")
+    check(agree(a["observed0"], b["observed0"]) >= KF_PAIRS_AGREE
+          and agree(a["pairs"], b["pairs"]) >= KF_PAIRS_AGREE,
+          "card and CPU found different points")
+    check(abs(a["grown"] - b["grown"]) <= KF_NEW_POINTS_SLACK,
+          f"card and CPU grew {a['grown']} and {b['grown']} points")
+    if grows:
+        check(a["grown"] > 0 and b["grown"] > 0,
+              f"growth inserted {a['grown']} / {b['grown']} points")
+    check(a["ba_ok"] and b["ba_ok"] and a["ba_adjusted"] == b["ba_adjusted"]
+          and a["ba_adjusted"] > 0, "local bundle adjustment did not run")
+    check(abs(a["rms_after"] - b["rms_after"])
+          <= BOOT_RMS_AGREE * b["rms_after"],
+          f"card and CPU rms after local BA differ: {a['rms_after']} vs "
+          f"{b['rms_after']}")
+
+
+def phase_slam_cpu(rec, device, card, fstep, slam, relocalizer, bundle):
+    """The first keyframe integration and the relocalization of phase 10,
+    replayed from copies of their inputs on the card and on the CPU."""
+    compare_keyframe_replay(rec["integrate"], "full SLAM, first keyframe "
+                            "integration", device, card, fstep, slam, bundle,
+                            grows=False)
+    sm, template, cam, max_score = rec["reloc"]
+    r_card = relocalizer.attempt_recovery(sm, template, cam, max_score)
+    r_cpu = relocalizer.attempt_recovery(sm.to("cpu"), template.cpu(),
+                                         cam.to("cpu"), max_score)
+    d_pose = max(float((r_card.R.cpu() - r_cpu.R).abs().max()),
+                 float((r_card.t.cpu() - r_cpu.t).abs().max()))
+    print(f"relocalization, card vs CPU: best keyframe {int(r_card.best_kf)} "
+          f"/ {int(r_cpu.best_kf)}, success {bool(r_card.success)} / "
+          f"{bool(r_cpu.success)}, score {float(r_card.score):.2f} / "
+          f"{float(r_cpu.score):.2f}, max pose diff {d_pose:.3e}")
+    check(int(r_card.best_kf) == int(r_cpu.best_kf)
+          and bool(r_card.success) == bool(r_cpu.success),
+          "card and CPU relocalize to different keyframes")
+    check(d_pose <= RELOC_POSE_ATOL,
+          f"card and CPU relocalized poses differ by {d_pose}")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SmokeFailure("CUDA is not available: chip_smoke needs a GPU")
     import visualslam_android_tpu_torch  # noqa: F401  (sets TF32 off)
     from visualslam_android_tpu_torch.models import bootstrap, bundle
     from visualslam_android_tpu_torch.models import frame_step
+    from visualslam_android_tpu_torch import native_runtime
     from visualslam_android_tpu_torch.models import keyframe as kf_mod
+    from visualslam_android_tpu_torch.models import relocalizer, slam
     from visualslam_android_tpu_torch.models import tracker
     from visualslam_android_tpu_torch.ops import camera as cam_ops
     from visualslam_android_tpu_torch.ops import cuda_build, fast, image, lie
     from visualslam_android_tpu_torch.ops import mestimator, wls
     from visualslam_android_tpu_torch.ops import sbi as sbi_ops
-    from visualslam_android_tpu_torch.utils import fixtures, synthetic
+    from visualslam_android_tpu_torch.utils import ate, datasets, fixtures
+    from visualslam_android_tpu_torch.utils import synthetic
 
     check("jax" not in sys.modules, "the port imported jax")
     device = torch.device("cuda", 0)
@@ -1165,15 +1616,17 @@ def main():
     del frames, outs, state0, sm
 
     # ---- 7. the stereo bootstrap, then tracking on its map ----
-    (b_config, b_cam, b_frames, trails, second, init,
-     boot_launches) = phase_bootstrap(device, card, fast, bootstrap,
-                                      frame_step, tracker, fixtures,
-                                      synthetic, cam_ops)
+    (b_config, b_cam, b_frames, trails, second, init, boot_launches,
+     kf_args) = phase_bootstrap(device, card, fast, bootstrap, frame_step,
+                                tracker, fixtures, synthetic, cam_ops)
 
     # ---- 8. bootstrap: card vs CPU ----
     phase_bootstrap_cpu(b_config, b_cam, card, b_frames, trails, second,
                         init, bootstrap, frame_step)
-    del b_frames, trails, second, init
+    compare_keyframe_replay(kf_args, "bootstrap map, keyframe 2 from the last "
+                            "tracked frame", device, card, frame_step, slam,
+                            bundle, grows=True)
+    del b_frames, trails, second, init, kf_args
 
     # ---- 9. bundle adjustment at full state size ----
     for key in fast.LAUNCHES:
@@ -1181,6 +1634,14 @@ def main():
     phase_ba_full(device, card, b_config, bundle, cam_ops, lie, mestimator,
                   synthetic, wls)
     ba_launches = dict(fast.LAUNCHES)
+
+    # ---- 10. full SLAM through the facade ----
+    slam_launches, slam_rec = phase_full_slam(
+        device, card, fast, slam, frame_step, relocalizer, native_runtime,
+        bundle, datasets, synthetic, ate)
+    phase_slam_cpu(slam_rec, device, card, frame_step, slam, relocalizer,
+                   bundle)
+    del slam_rec
 
     one_frame_ms = sum(r[2] for r in rows)
     one_frame_plain = sum(r[3] for r in rows)
@@ -1191,10 +1652,11 @@ def main():
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces,
                 "launches": (chain_launches[name] + boot_launches[name]
-                             + ba_launches[name]),
+                             + ba_launches[name] + slam_launches[name]),
                 "launches_by_path": {"chain": chain_launches[name],
                                      "bootstrap": boot_launches[name],
-                                     "ba_full_size": ba_launches[name]},
+                                     "ba_full_size": ba_launches[name],
+                                     "slam": slam_launches[name]},
                 "library_ms": None, **measured}
 
     print(json.dumps({"kernels": [

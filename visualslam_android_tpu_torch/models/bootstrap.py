@@ -88,6 +88,10 @@ class StereoInit:
     ba_converged: bool = False
 
 
+# The StereoInit reason of a bootstrap whose bundle adjustment left a
+# non-finite map: the facade answers it with a full reset.
+NON_FINITE = "bundle adjustment left a non-finite map"
+
 # InitFromStereo's schedule (MapMaker.cc:346-367): 5 global rounds of 10
 # iterations, growth at these levels, then rounds of 20 until one converges.
 N_INIT_BA_ROUNDS = 5
@@ -207,9 +211,8 @@ def init_from_stereo(trails: TrailState, frame_second: FrameData, cam,
     never_retry = torch.zeros(N, K, dtype=torch.bool, device=device)
     failure_mask = torch.zeros(N, K, dtype=torch.bool, device=device)
     cap = (init_point_slots(cfg), 2)
-    non_finite = StereoInit(
-        False, "bundle adjustment left a non-finite map", homography=res,
-        R2=R2, t2=t2, n_ok=n_ok)
+    non_finite = StereoInit(False, NON_FINITE, homography=res, R2=R2, t2=t2,
+                            n_ok=n_ok)
     for _ in range(N_INIT_BA_ROUNDS):
         sm, never_retry, failure_mask, _, map_ok = _global_ba(
             sm, never_retry, failure_mask, cam, cfg, 10, cap)

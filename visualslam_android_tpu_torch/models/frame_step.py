@@ -12,10 +12,13 @@ the device once per frame.
 Also the bootstrap-phase stages of the same JAX module:
 ``bootstrap_frontend`` (MakeKeyFrame_Lite + SBI), ``trail_advance_step``
 (TrailTracking_Advance, jni/Tracker.cc:294-346) and ``init_points_step``
-(InitFromStereo's point building, jni/MapMaker.cc:262-339); and two of
-its mapping stages: ``ba_round`` (BundleAdjustRecent / BundleAdjustAll,
-jni/MapMaker.cc:776-960) and ``add_map_points_step`` (AddSomeMapPoints,
-jni/MapMaker.cc:427-437).
+(InitFromStereo's point building, jni/MapMaker.cc:262-339); and its
+mapping stages: ``ba_round`` (BundleAdjustRecent / BundleAdjustAll,
+jni/MapMaker.cc:776-960), ``add_map_points_step`` (AddSomeMapPoints,
+jni/MapMaker.cc:427-437), ``integrate_keyframe`` (the first stage of
+AddKeyFrameFromTopOfQueue, jni/MapMaker.cc:481-506) and the budgeted
+re-find stages ``refind_newly`` / ``refind_failures`` (ReFindNewlyMade /
+ReFindFromFailureQueue, jni/MapMaker.cc:1061-1095).
 """
 
 from __future__ import annotations
@@ -31,6 +34,8 @@ from visualslam_android_tpu_torch.models import mapmaker
 from visualslam_android_tpu_torch.models import tracker as tracker_mod
 from visualslam_android_tpu_torch.models import triangulate
 from visualslam_android_tpu_torch.models.map_store import (
+    SRC_REFIND,
+    SRC_TRACKER,
     SRC_TRAIL,
     FrameData,
     SLAMMap,
@@ -344,7 +349,8 @@ def _add_map_points_body(slam_map: SLAMMap, new_points, cam, src_kf: int,
                          level: int, config: SLAMConfig):
     kfs = slam_map.keyframes
     d = mapmaker.keyframe_distances(kfs, kfs.R[src_kf], kfs.t[src_kf])
-    d[src_kf] = torch.inf
+    d = torch.where(torch.arange(kfs.n_slots, device=d.device) == src_kf,
+                    torch.inf, d)
     # Invalid slots and src_kf itself are at +inf: a finite minimum names a
     # valid keyframe other than src_kf. Otherwise everything is gated off.
     dmin, target = torch.min(d, dim=0)
@@ -375,3 +381,145 @@ def add_map_points_step(slam_map: SLAMMap, new_points, cam, src_kf: int,
     points. Returns (slam_map, new_points [N] with the new ones set)."""
     return _add_map_points_body(slam_map, new_points, cam, src_kf, level,
                                 config)
+
+
+# ---------------------------------------------------------------------------
+# AddKeyFrameFromTopOfQueue (MapMaker.cc:481-506), first stage
+# ---------------------------------------------------------------------------
+
+
+def integrate_keyframe(slam_map: SLAMMap, new_points, never_retry,
+                       failure_mask, frame: FrameData, R, t, found, found_pos,
+                       level, subpix, slot: int, cam, config: SLAMConfig):
+    """MakeKeyFrame_Rest + insertion into keyframe slot `slot` (a host int)
+    + the tracker's measurements of this frame as SRC_TRACKER + the scene
+    depth refresh + ReFindInSingleKeyFrame (MapMaker.cc:497). found,
+    found_pos, level, subpix [N] are what track_map returned for the frame.
+
+    The epipolar growth (AddSomeMapPoints at levels 3, 0, 1, 2) is not
+    part of it: the facade runs each level as a mapping task of its own.
+    The keyframe store is written IN PLACE (see keyframe.insert_keyframe).
+    Returns (slam_map, new_points, never_retry, failure_mask)."""
+    extras = kf_mod.make_frame_extras(frame, config)
+    kf_mod.insert_keyframe(slam_map.keyframes, slot, frame, extras, R, t,
+                           fixed=False)
+    meas = mapmaker.add_measurements_batch(slam_map.meas, found, slot,
+                                           found_pos, level, SRC_TRACKER,
+                                           subpix)
+    sm = kf_mod.refresh_scene_depth(slam_map.replace(meas=meas), slot)
+
+    mask = sm.points.valid & ~never_retry[:, slot]
+    sm, found_rf, never_new = mapmaker.refind_in_keyframe(sm, slot, cam, mask,
+                                                          config)
+    never_retry = never_retry.clone()
+    never_retry[:, slot] |= never_new
+    failure_mask = failure_mask.clone()
+    failure_mask[:, slot] &= ~found_rf
+    return sm, new_points, never_retry, failure_mask
+
+
+# ---------------------------------------------------------------------------
+# ReFindNewlyMade / ReFindFromFailureQueue (MapMaker.cc:1061-1095), budgeted:
+# the pending (keyframe, point) pairs are compacted to at most
+# refind_pair_budget per call (leftovers stay queued).
+#
+# n_kf (a host int) is the number of keyframe slots in use: slots fill in
+# order and are never freed, so no pair names a later slot, and the work
+# runs over the first n_kf rows only.
+# ---------------------------------------------------------------------------
+
+
+def _pending_pairs(slam_map: SLAMMap, point_mask_kn):
+    """Fold point and keyframe validity and the existing observations into
+    the [n, N] pending mask of the first n keyframe slots."""
+    pts, kfs, meas = slam_map.points, slam_map.keyframes, slam_map.meas
+    n = point_mask_kn.shape[0]
+    k = torch.arange(n, device=meas.kf.device)
+    already = torch.any(
+        meas.valid[None] & (meas.kf[None] == k[:, None, None]), dim=-1)
+    return (point_mask_kn & pts.live()[None] & ~already
+            & kfs.valid[:n, None])
+
+
+def _refind_pending_step(slam_map: SLAMMap, pending, cam,
+                         config: SLAMConfig):
+    """Search the first refind_pair_budget pairs of `pending` [n, N] in
+    row-major order and insert what is found, keyframe by keyframe in slot
+    order (slot allocation and eviction depend on that order). Returns
+    (slam_map, processed [n, N], found [n, N]).
+
+    The pairs are listed without a host read: a running count over the
+    flattened mask ranks the pending pairs, and each of the first Q writes
+    its flat index into its rank's entry; entries past the count hold 0
+    and are not ok (jnp.nonzero's size / fill_value)."""
+    n, N = pending.shape
+    device = pending.device
+    Q = min(config.mapmaker.refind_pair_budget, n * N)
+    flat = pending.reshape(-1)
+    rank = torch.cumsum(flat.to(torch.int32), 0) - 1
+    spare = n * N
+    idx = torch.zeros(Q + 1, dtype=torch.long, device=device)
+    idx.scatter_(0, torch.where(flat & (rank < Q), rank, Q).long(),
+                 torch.arange(n * N, device=device))
+    idx = idx[:Q]
+    pair_ok = torch.arange(Q, device=device) < torch.sum(flat)
+    found_q, pos_q, lvl_q, sp_q = mapmaker.refind_pairs(
+        slam_map, idx % N, idx // N, pair_ok, cam, config)
+
+    dst = torch.where(pair_ok, idx, spare)
+
+    def dense(val):
+        out = torch.zeros((spare + 1,) + val.shape[1:], dtype=val.dtype,
+                          device=device)
+        return out.index_copy_(0, dst, val)[:spare].reshape(
+            (n, N) + val.shape[1:])
+
+    processed, found_kn = dense(pair_ok), dense(found_q)
+    pos_kn, lvl_kn, sp_kn = dense(pos_q), dense(lvl_q), dense(sp_q)
+    meas = slam_map.meas
+    for k in range(n):
+        meas = mapmaker.add_measurements_batch(meas, found_kn[k], k,
+                                               pos_kn[k], lvl_kn[k],
+                                               SRC_REFIND, sp_kn[k])
+    return slam_map.replace(meas=meas), processed, found_kn
+
+
+def refind_newly(slam_map: SLAMMap, new_points, never_retry, failure_mask,
+                 cam, config: SLAMConfig, n_kf: int):
+    """ReFindNewlyMade: search the new points [N] in the keyframes that do
+    not observe them yet. A point leaves the new-point queue once no
+    searchable pair of it remains; a pair searched and not found goes to
+    never_retry; a pair found leaves the failure queue. Returns (slam_map,
+    new_points, never_retry, failure_mask)."""
+    n, N = n_kf, new_points.shape[0]
+    pending = _pending_pairs(
+        slam_map, new_points[None].expand(n, N) & ~never_retry[:, :n].T)
+    sm, processed, found_kn = _refind_pending_step(slam_map, pending, cam,
+                                                   config)
+    remaining = pending & ~processed
+    never_retry = never_retry.clone()
+    never_retry[:, :n] |= (processed & ~found_kn).T
+    failure_mask = failure_mask.clone()
+    failure_mask[:, :n] &= ~found_kn.T
+    return (sm, new_points & torch.any(remaining, dim=0), never_retry,
+            failure_mask)
+
+
+def refind_failures(slam_map: SLAMMap, never_retry, failure_mask, cam,
+                    config: SLAMConfig, n_kf: int):
+    """ReFindFromFailureQueue: search the failure queue's (point, keyframe)
+    pairs. A searched pair leaves the queue whatever the outcome (bundle
+    adjustment ejections fill it again) and goes to never_retry if not
+    found; a pair that cannot be searched (dead point, already observed,
+    never-retry) is dropped; only pairs over the budget stay queued.
+    Returns (slam_map, never_retry, failure_mask)."""
+    n = n_kf
+    pending = _pending_pairs(
+        slam_map, failure_mask[:, :n].T & ~never_retry[:, :n].T)
+    sm, processed, found_kn = _refind_pending_step(slam_map, pending, cam,
+                                                   config)
+    never_retry = never_retry.clone()
+    never_retry[:, :n] |= (processed & ~found_kn).T
+    queued = torch.zeros_like(failure_mask)
+    queued[:, :n] = (pending & ~processed).T
+    return sm, never_retry, queued

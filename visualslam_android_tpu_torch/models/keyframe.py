@@ -22,6 +22,7 @@ from visualslam_android_tpu_torch.models.map_store import (
 from visualslam_android_tpu_torch.ops import camera as cam_ops
 from visualslam_android_tpu_torch.ops import fast, image, sbi
 from visualslam_android_tpu_torch.ops.levels import level_zero_pos
+from visualslam_android_tpu_torch.utils.tensors import const
 
 
 def make_frame(img, config: SLAMConfig) -> FrameData:
@@ -70,8 +71,10 @@ def insert_keyframe(kfs: KeyFrameStore, slot: int, frame: FrameData,
     """Write a keyframe into `slot`. Updates the store's tensors IN PLACE
     (the JAX package's functional update copies the whole store) and
     returns the same store."""
-    kfs.valid[slot] = True
-    kfs.fixed[slot] = fixed
+    # fill_ takes the value as a kernel argument; assigning a Python
+    # scalar would copy it from host memory, which waits for the stream.
+    kfs.valid[slot].fill_(True)
+    kfs.fixed[slot].fill_(fixed)
     kfs.R[slot] = R
     kfs.t[slot] = t
     for dst, src in zip(kfs.pyramid, frame.pyramid):
@@ -118,6 +121,7 @@ def candidate_rays(cam: cam_ops.Camera, cand_xy, level: int):
         return v / torch.linalg.vector_norm(v, dim=-1, keepdim=True)
 
     center = ray(zero)
-    normal = zero.new_tensor([0.0, 0.0, -1.0]).expand_as(center)
-    return (center, ray(zero + zero.new_tensor([scale, 0.0])),
-            ray(zero + zero.new_tensor([0.0, scale])), normal)
+    dev, dt = zero.device, zero.dtype
+    normal = const((0.0, 0.0, -1.0), dev, dt).expand_as(center)
+    return (center, ray(zero + const((scale, 0.0), dev, dt)),
+            ray(zero + const((0.0, scale), dev, dt)), normal)

@@ -8,7 +8,9 @@ insertion, ThinCandidates (:393-422), the batched epipolar search
 (AddPointEpipolar, :525-703), packing of new points into free slots, the
 global map transforms (:440-467), CalcPlaneAligner (:1104-1231) and the
 bundle-adjustment glue (:776-960: problem construction, the local adjust
-set, write-back with outlier routing). Re-find is not ported yet.
+set, write-back with outlier routing) and ReFind (:967-1095: over an
+explicit (point, keyframe) pair list, and over all points in one
+keyframe).
 
 Functions here return new stores and leave their inputs as they were,
 except where a docstring says IN PLACE.
@@ -25,8 +27,10 @@ from visualslam_android_tpu_torch.config import SLAMConfig
 from visualslam_android_tpu_torch.models import bundle as bundle_mod
 from visualslam_android_tpu_torch.models import keyframe as kf_mod
 from visualslam_android_tpu_torch.models import map_store, triangulate
+from visualslam_android_tpu_torch.models import tracker as tracker_mod
 from visualslam_android_tpu_torch.models.map_store import (
     SRC_EPIPOLAR,
+    SRC_REFIND,
     SRC_ROOT,
     SRC_TRACKER,
     SLAMMap,
@@ -197,7 +201,8 @@ def thin_candidates(slam_map: SLAMMap, kf_idx: int, level: int, radius=10):
     # Positions off the level mark nothing: they go to one spare element.
     inside = busy & (bx < W) & (by < H)
     flat = torch.zeros(H * W + 1, dtype=kfs.R.dtype, device=busy.device)
-    flat[torch.where(inside, by * W + bx, H * W).reshape(-1)] = 1.0
+    flat.index_fill_(0, torch.where(inside, by * W + bx, H * W).reshape(-1),
+                     1.0)
     r = int(radius)
     near = F.conv2d(flat[:H * W].view(1, 1, H, W),
                     _disk(r, flat.device, flat.dtype), padding=r - 1)[0, 0]
@@ -459,6 +464,80 @@ def insert_new_points(slam_map: SLAMMap, cam, res: EpipolarResult,
     )
     pts = map_store.refresh_pixel_vectors(pts, slam_map.keyframes)
     return slam_map.replace(points=pts, meas=meas), new_mask
+
+
+# ---------------------------------------------------------------------------
+# ReFind (MapMaker.cc:967-1095)
+# ---------------------------------------------------------------------------
+
+
+def refind_pairs(slam_map: SLAMMap, pair_pt, pair_kf, pair_ok, cam,
+                 config: SLAMConfig):
+    """ReFind_Common over an explicit (point, keyframe) pair list [Q]:
+    project point pair_pt[q] into keyframe pair_kf[q], warp its template
+    from its source keyframe, coarse-search radius 4 (MapMaker.cc:1014)
+    against that keyframe's level image, subpixel (8 iterations, :1022)
+    when the search level is above 0. The reference keeps a measurement
+    whose subpixel step does not converge (:1028), at the coarse position.
+    Returns (found, pos_zero, search_level, did_subpix), each [Q]."""
+    pts, kfs = slam_map.points, slam_map.keyframes
+    tc, pc_cfg = config.tracker, config.patch
+    hp = pc_cfg.half_patch_size
+    pt, kf = pair_pt.long(), pair_kf.long()
+
+    R, t = kfs.R[kf], kfs.t[kf]  # [Q, 3, 3], [Q, 3]
+    pc, px, derivs, proj_ok = tracker_mod.project_camera_points(
+        cam, (R @ pts.pos_w[pt][..., None])[..., 0] + t,
+        (float(tc.width), float(tc.height)))
+    motion_right = (R @ pts.pixel_right_w[pt][..., None])[..., 0]
+    motion_down = (R @ pts.pixel_down_w[pt][..., None])[..., 0]
+    warp_inv, search_level, warp_ok = match.calc_search_level_and_warp(
+        pc, motion_right, motion_down, derivs,
+        det_lo=pc_cfg.warp_det_lo, det_hi=pc_cfg.warp_det_hi,
+    )
+    tmpl = match.make_templates_warped_multilevel(
+        kfs.pyramid, pts.source_kf[pt], pts.source_level[pt], pts.center[pt],
+        warp_inv, search_level, hp,
+    )
+    active = pair_ok & proj_ok & warp_ok & ~tmpl.bad
+
+    res = match.find_patch_coarse_multilevel(
+        kfs.pyramid, kfs.corner_mask, tmpl, px, search_level,
+        torch.full_like(px[:, 0], 4.0), active, max_range=4, half_patch=hp,
+        kf_idx=kf,
+    )
+    found = res.found & active
+    pos_zero = torch.where(found[:, None], res.pos_level, px)
+    sub_sel = found & (search_level > 0)
+    sp = match.iterate_subpix_multilevel(
+        kfs.pyramid, tmpl, pos_zero, search_level, sub_sel, max_iters=8,
+        half_patch=hp, conv_limit=pc_cfg.subpix_converged, kf_idx=kf,
+    )
+    pos_zero = torch.where((sub_sel & sp.converged)[:, None], sp.pos_zero,
+                           pos_zero)
+    return found, pos_zero, search_level, sub_sel
+
+
+def refind_in_keyframe(slam_map: SLAMMap, kf_idx: int, cam, point_mask,
+                       config: SLAMConfig):
+    """ReFind_Common over the `point_mask` points in keyframe `kf_idx` (a
+    host int; ReFindInSingleKeyFrame, MapMaker.cc:967-1058): the live points
+    it does not observe yet are searched there as refind_pairs does, and a
+    SRC_REFIND measurement is added for each one found. Returns (slam_map,
+    found [N], never_retry_new [N]: searched and not found)."""
+    pts, meas = slam_map.points, slam_map.meas
+    N = pts.n_slots
+    already = map_store.point_observed_in(meas, kf_idx)
+    active = point_mask & pts.live() & ~already
+    device = active.device
+    found, pos_zero, search_level, did_subpix = refind_pairs(
+        slam_map, torch.arange(N, device=device),
+        torch.full((N,), kf_idx, dtype=torch.long, device=device), active,
+        cam, config,
+    )
+    meas = add_measurements_batch(meas, found, kf_idx, pos_zero, search_level,
+                                  SRC_REFIND, did_subpix)
+    return slam_map.replace(meas=meas), found, active & ~found
 
 
 # ---------------------------------------------------------------------------

@@ -62,7 +62,13 @@ def _to_cam(R, t, pts_w):
 
 def project_points(cam, pts_w, R, t, image_size):
     """Batched TrackerData::Project (jni/TrackerData.h:69-95)."""
-    pc = _to_cam(R, t, pts_w)
+    return project_camera_points(cam, _to_cam(R, t, pts_w), image_size)
+
+
+def project_camera_points(cam, pc, image_size):
+    """project_points from camera-frame points pc [N, 3]: (pc, pixel,
+    projection derivatives, in front, within the lens radius and inside
+    the image)."""
     z_ok = pc[:, 2] > 0.001
     safe_z = torch.where(z_ok, pc[:, 2], 1.0)
     m = pc[:, :2] / safe_z[:, None]
@@ -210,7 +216,7 @@ def track_map(frame: FrameData, slam_map: SLAMMap, cam, R, t,
         | recovered
     ) & (n_high > tc.coarse_min)
     coarse_sel = torch.zeros(N, dtype=torch.bool, device=device)
-    coarse_sel[top_idx] = True
+    coarse_sel.index_fill_(0, top_idx, True)
     coarse_sel = coarse_sel & high & try_coarse
 
     # ---- Fine set selection (Tracker.cc:495-538) ----

@@ -192,16 +192,29 @@ def _window_sums(windows, P):
     return F.conv2d(windows[:, None], ones)[:, 0]
 
 
+def _kf_index(kf_idx, n_dims):
+    """A per-point keyframe index broadcast against [N, ...] index tensors
+    of n_dims dimensions (0 for a single frame)."""
+    if kf_idx is None:
+        return 0
+    return kf_idx.long().reshape((-1,) + (1,) * (n_dims - 1))
+
+
 def find_patch_coarse_multilevel(pyramid, corner_masks, templates: Templates,
                                  pred_zero, search_level, radius_zero, active,
                                  max_range: int, half_patch: int = 5,
-                                 max_ssd_per_px: int = 500) -> CoarseResult:
+                                 max_ssd_per_px: int = 500,
+                                 kf_idx=None) -> CoarseResult:
     """FindPatchCoarse (PatchFinder.cc:170-235) over all search levels in
     one pass. pred_zero [N, 2] level-0 predictions; radius_zero [N] level-0
     radius (<= max_range), scaled to the search level with ceil as the
     reference's integer level ranges (Tracker.cc:635-641). Candidates are
     FAST corners within the radius that support a full patch inside the
     image. Returns found and the matched position in level-0 coords.
+
+    With kf_idx [N], the pyramid and corner masks are keyframe stacks
+    [K, H_l, W_l] and each point searches its own keyframe (the
+    (point, keyframe)-pair form re-find runs on).
     """
     N = templates.data.shape[0]
     P = 2 * half_patch + 1
@@ -223,8 +236,9 @@ def find_patch_coarse_multilevel(pyramid, corner_masks, templates: Templates,
     mask_stack = img_ops.flatten_levels(
         tuple(m.to(dtype) for m in corner_masks)
     )
-    windows = img_ops.gather_levels(img_stack, lv, 0, xs, ys)  # [N, Wn, Wn]
-    mask_windows = img_ops.gather_levels(mask_stack, lv, 0, xs, ys)
+    kf = _kf_index(kf_idx, 3)
+    windows = img_ops.gather_levels(img_stack, lv, kf, xs, ys)  # [N, Wn, Wn]
+    mask_windows = img_ops.gather_levels(mask_stack, lv, kf, xs, ys)
 
     sum_i = _window_sums(windows, P)
     sumsq_i = _window_sums(windows * windows, P)
@@ -270,11 +284,13 @@ class SubpixResult(TensorTree):
 
 
 def _subpix_loop(stack, lv, hw, scale, templates: Templates, pos_zero,
-                 active, max_iters, half_patch, conv_limit) -> SubpixResult:
+                 active, max_iters, half_patch, conv_limit,
+                 kf=0) -> SubpixResult:
     """The inverse-composition iterations shared by iterate_subpix and
     iterate_subpix_multilevel. stack: image.flatten_levels output; lv
     [N, 1] each point's level in it; hw [N, 2] that level's (H, W);
-    scale [N, 1] level-0 pixels per pixel of the point's level."""
+    scale [N, 1] level-0 pixels per pixel of the point's level; kf 0 or
+    [N, 1] each point's keyframe in a stack."""
     N = pos_zero.shape[0]
     dtype, device = pos_zero.dtype, pos_zero.device
     center0 = (pos_zero + 0.5) / scale - 0.5
@@ -304,7 +320,7 @@ def _subpix_loop(stack, lv, hw, scale, templates: Templates, pos_zero,
         failed = failed | (off_edge & ~converged & active)
 
         target = img_ops.bilinear_levels(
-            stack, lv, 0, center_l[:, None, :] + inner[None]
+            stack, lv, kf, center_l[:, None, :] + inner[None]
         )
         diff = target - tmpl_inner + mean_diff[:, None]
         acc = torch.stack([torch.sum(diff * gx, dim=-1),
@@ -321,18 +337,20 @@ def _subpix_loop(stack, lv, hw, scale, templates: Templates, pos_zero,
 
 def iterate_subpix_multilevel(pyramid, templates: Templates, pos_zero,
                               search_level, active, max_iters: int = 10,
-                              half_patch: int = 5,
-                              conv_limit: float = 0.03) -> SubpixResult:
+                              half_patch: int = 5, conv_limit: float = 0.03,
+                              kf_idx=None) -> SubpixResult:
     """IterateSubPixToConvergence (PatchFinder.cc:272-350) over all search
     levels in one pass: a fixed number of inverse-composition iterations
     with per-point converged / failed masks. Updates are scaled back by
-    the level scale as in the reference (:339)."""
+    the level scale as in the reference (:339). With kf_idx [N], the
+    pyramid levels are keyframe stacks [K, H_l, W_l] and each point refines
+    in its own keyframe."""
     level = search_level.long()
     scale = (2.0 ** search_level.to(pos_zero.dtype))[:, None]
     stack = img_ops.flatten_levels(pyramid)
     return _subpix_loop(stack, level[:, None], stack[2][level], scale,
                         templates, pos_zero, active, max_iters, half_patch,
-                        conv_limit)
+                        conv_limit, kf=_kf_index(kf_idx, 2))
 
 
 def iterate_subpix(img, templates: Templates, pos_zero, search_level, active,

@@ -3,7 +3,9 @@ and the SE(2) -> SE(3) rotation lift.
 
 Port of the JAX package's ``ops/sbi.py`` (the reference's
 jni/SmallBlurryImage.{h,cc}): template construction (MakeFromKF :20-55),
-gradient jacobians (MakeJacs :58-78), 4-DoF ESM alignment
+gradient jacobians (MakeJacs :58-78), the zero-mean SSD score
+(ZMSSD :82-94) and its batched form against every keyframe
+(Relocaliser::ScoreKFs, jni/Relocaliser.cc:46-58), 4-DoF ESM alignment
 (IteratePosRelToTarget :99-222) and SE3fromSE2 (:245-333). The per-pixel
 loops are whole-image masked reductions; the fixed-count iterations are
 Python loops.
@@ -61,6 +63,21 @@ def make_jacs(template):
 def make_sbi(level3_img, blur_sigma=0.75) -> SBI:
     tmpl = make_template(level3_img, blur_sigma)
     return SBI(template=tmpl, jacs=make_jacs(tmpl))
+
+
+def zmssd(a_template, b_template):
+    """Plain SSD of zero-mean templates (SmallBlurryImage.cc:82-94),
+    batched over leading axes."""
+    d = a_template - b_template
+    return torch.sum(d * d, dim=(-2, -1))
+
+
+def score_against_all(cur_template, kf_templates, kf_valid):
+    """ZMSSD of the current SBI against every keyframe SBI at once (the
+    batched Relocaliser::ScoreKFs, jni/Relocaliser.cc:46-58). Invalid
+    slots score +inf."""
+    scores = zmssd(kf_templates, cur_template[None])
+    return torch.where(kf_valid, scores, torch.inf)
 
 
 _OUT_OF_IMAGE = -9e20

@@ -32,13 +32,13 @@ def default_device(device=None) -> torch.device:
     return torch.device("cuda")
 
 
-def _move(value, device):
+def _map(fn, value):
     if isinstance(value, torch.Tensor):
-        return value.to(device)
+        return fn(value)
     if isinstance(value, TensorTree):
-        return value.to(device)
+        return value._map(fn)
     if isinstance(value, tuple):
-        return tuple(_move(v, device) for v in value)
+        return tuple(_map(fn, v) for v in value)
     return value
 
 
@@ -46,12 +46,20 @@ class TensorTree:
     """Mixin for dataclasses whose fields are tensors, tuples of tensors or
     other TensorTrees."""
 
-    def to(self, device):
+    def _map(self, fn):
         return dataclasses.replace(
             self,
-            **{f.name: _move(getattr(self, f.name), device)
+            **{f.name: _map(fn, getattr(self, f.name))
                for f in dataclasses.fields(self)},
         )
+
+    def to(self, device):
+        return self._map(lambda x: x.to(device))
+
+    def clone(self):
+        """A deep copy: every tensor cloned (functions that write a store
+        in place, such as keyframe.insert_keyframe, leave the copy alone)."""
+        return self._map(torch.clone)
 
     def replace(self, **changes):
         return dataclasses.replace(self, **changes)
