@@ -8,8 +8,11 @@ It drives the port's main paths at the reference's full size (800x480
 frames, a 2048-slot map, 32 keyframe slots) and checks them: the per-frame
 tracking step on a fixture map; the stereo bootstrap that builds a map from
 a sideways camera motion (trails, homography, triangulation, bundle
-adjustment, epipolar growth, plane alignment) and then tracks on it; and
-bundle adjustment at the map's full capacities.
+adjustment, epipolar growth, plane alignment) and then tracks on it;
+bundle adjustment at the map's full capacities and at 128 keyframe slots
+through every solver; full SLAM through the facade at the default and at
+the large-map configuration; and the command line on a TUM-format
+sequence.
 
 1. device: requires CUDA; prints the card's name and power limit;
 2. build: compiles the CUDA kernels (csrc/fast.cu) with nvcc and prints
@@ -71,7 +74,15 @@ bundle adjustment at the map's full capacities.
    30-60 px): bundle_adjust(max_iters=20) on the card must bring the rms
    to the noise level and eject the moved measurements, and agree with the
    same run on the CPU by objective and rms; one LM iteration is timed by
-   stage with CUDA events;
+   stage with CUDA events. Then an odometry-style problem at 128 keyframe
+   slots (2048 points, 16 observations each from consecutive cameras, so
+   co-observation offsets stay within the band of 16; seed 6) runs 10 LM
+   iterations through each (assembly, solver) path: scatter + chol, band +
+   chol, band + band_pcg, scatter + pcg, on the card and on the CPU. Each
+   must reach the noise level and eject the moved measurements, agree
+   with the CPU by objective, rms and ejected set, and with scatter + chol
+   by rms and by objective at one sigma; CG iterations and reads per solve
+   and one LM iteration by stage are printed;
 10. full SLAM through the facade (models/slam.SLAMSystem, sync mode) at
    the default SLAMConfig (800x480, 4096 point slots, 64 keyframe slots),
    on bench.py's 120-frame synthetic sequence (seed 11, px_per_m 240) with
@@ -94,11 +105,32 @@ bundle adjustment at the map's full capacities.
    depth cap of its 3 cm bootstrap baseline), so phase 8's replay is the
    one that holds growth on the card to the CPU. After the checks the same
    facade goes on for 10 frames, nothing wrapped, under torch.profiler: the
-   device's busy share.
+   device's busy share;
+11. the large-map facade: tools/run_large_map_slam.py's configuration
+   (800x480, max_keyframes 128 above dense_solver_max_cams 64,
+   min_frames_between_kfs 4) in sync mode over its traverse (a 4096^2
+   texture, 12 m sideways, 600 frames rendered on the card), touches at
+   frames 0 and 6. Every bundle adjustment after the bootstrap must go
+   through band + band_pcg or scatter + pcg (the choices and rounds are
+   printed by path), no NaN may be left in the map, more than 60% of the
+   frames must track, and the map must hold more keyframes than phase
+   10's; frames/s, points, CG iterations and reads per tracked frame are
+   printed, and the FAST launches must equal front-end runs and keyframes;
+12. the command line: tools/make_tum_synthetic.py's clean 640x480,
+   120-frame sequence (seed 33), rendered by the port on the card and
+   written as PNG files with rgb.txt and groundtruth.txt into a temporary
+   directory, then ``run_slam --dataset tum --root <dir> --frames 120
+   --json --save-map <file>`` through run_slam.main on the card. The
+   report must name the frame reader that ran, more than 90 frames must
+   track, at least 2 keyframes, the ATE must stay under 2% of the
+   trajectory's span (printed beside the JAX package's figure in
+   artifacts/ATE_r5.json, reported and not claimed), and the saved map
+   must load back equal to the live one.
 
 Any failed check raises and the script exits non-zero. The last two lines
 of standard output are a JSON object describing the kernels (`launches`
-is the sum over phases 4, 7, 9 and 10, `launches_by_path` gives each) and
+is the sum over phases 4, 7, 9, 10, 11 and 12, `launches_by_path` gives
+each) and
 the ``{"ok": true, "device": ...}`` line. It imports no jax.
 """
 
@@ -106,6 +138,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -172,6 +205,30 @@ KF_MEAS_AGREE = 0.01
 KF_PAIRS_AGREE = 0.98
 KF_NEW_POINTS_SLACK = 2
 RELOC_POSE_ATOL = 1e-4
+# Phase 9, extended: bundle adjustment at 128 keyframe slots, an
+# odometry-style problem whose co-observing pairs lie within the band.
+BIG_K, BIG_N, BIG_O, BIG_BAND = 128, 2048, 16, 16
+BIG_SEED = 6
+BIG_MAX_ITERS = 10
+BIG_PAIRS = (("scatter", "chol"), ("band", "chol"), ("band", "band_pcg"),
+             ("scatter", "pcg"))
+BIG_DENSE_AGREE = 0.02   # each path vs scatter + chol: objective and rms
+# Phase 11: the large-map facade (tools/run_large_map_slam.py).
+LARGE_FRAMES = 600        # frames of the traverse (the tool's count)
+LARGE_RUN = 600           # of them, run through the facade from frame 0
+# Along the traverse a keyframe is queued every 5 frames and takes 5 mapping
+# tasks, so the queue never empties and bundle adjustment waits; the camera
+# then holds still at the last pose for LARGE_HOLD frames while it drains.
+LARGE_HOLD = 40
+LARGE_MIN_TRACKED = 0.6   # share of the frames
+# Phase 12: run_slam on the TUM-format sequence of tools/make_tum_synthetic.py
+# (clean, 640x480, 120 frames).
+TUM_FRAMES = 120
+TUM_MIN_TRACKED = 90
+TUM_ATE_SHARE = 0.02
+# artifacts/ATE_r5.json, clean_640x480: the JAX package's run_slam on a TPU,
+# reported beside the port's, not a bound.
+TUM_JAX_ATE_M, TUM_JAX_ATE_PCT = 0.00909, 1.09
 # After phase 10's checked run, its facade goes on for PROFILE_FRAMES frames
 # with nothing wrapped, under torch.profiler: the device's busy share.
 PROFILE_FRAMES = 10
@@ -947,12 +1004,8 @@ def ba_outcome(prob, cam, res, bundle, mestimator):
     kept = prob.replace(meas_valid=res.meas_valid)
     rms = float(bundle.reprojection_rms(kept, cam, res.cam_R, res.cam_t,
                                         res.points))
-    _, _, err_sq, z_bad = bundle._project_all(
-        cam, res.cam_R, res.cam_t, res.points, bundle._sanitized(kept)[0])
-    score = mestimator.objective_score(err_sq, res.sigma_squared)
-    ok = res.meas_valid & ~z_bad
-    return rms, float(torch.sum(torch.where(ok, score, 0.0))
-                      + res.outlier_meas.sum())
+    return rms, objective_at(prob, cam, res, res.sigma_squared, bundle,
+                             mestimator)
 
 
 def event_ms(fn, reps=10):
@@ -1054,6 +1107,470 @@ def phase_ba_full(device, card, config, bundle, cam_ops, lie, mestimator,
           f"Cholesky solve {ms_solve:.3f} ms, back-substitution + "
           f"re-projection {ms_back:.3f} ms; sum "
           f"{ms_lin + ms_schur + ms_solve + ms_back:.3f} ms  [{card}]")
+
+
+def make_band_problem(config, seed, bundle, cam_ops, synthetic, lie):
+    """A bundle problem at 128 keyframe slots, made with numpy from a seed on
+    the CPU: BIG_K cameras along a 10 m sideways path looking ahead (camera
+    0 fixed), BIG_N points 3.5-6 m away, each seen by the BIG_O consecutive
+    cameras from the one it is anchored at (co-observation offsets at most
+    BIG_O - 1 <= BIG_BAND, as on an odometry map), at pyramid levels 0-2
+    with BA_NOISE_PX of noise per level-pixel; BA_OUTLIER_SHARE of the
+    measurements moved by 30-60 px. Cameras 1.. and all points start
+    perturbed. Returns (problem, camera, moved [N, O] bool)."""
+    rng = np.random.default_rng(seed)
+    tc = config.tracker
+    K, N, O = BIG_K, BIG_N, BIG_O
+    cam = cam_ops.make_camera(config.camera.params(), tc.width, tc.height,
+                              device="cpu")
+    xs = -5.0 + 10.0 * np.arange(K) / (K - 1)
+    poses = [synthetic.look_at_pose((x, 0.1 * np.sin(0.3 * k), 0.0),
+                                    target=(x, 0.0, 4.5), device="cpu")
+             for k, x in enumerate(xs)]
+    R = torch.stack([p[0] for p in poses])
+    t = torch.stack([p[1] for p in poses])
+    anchor = rng.integers(0, K, N)
+    pts = torch.from_numpy(np.stack(
+        [xs[anchor] + rng.uniform(0.0, 1.2, N), rng.uniform(-1.2, 1.2, N),
+         rng.uniform(3.5, 6.0, N)], -1).astype(np.float32))
+    order = torch.from_numpy(np.minimum(anchor[:, None] + np.arange(O),
+                                        K - 1).astype(np.int64))
+    pc = torch.einsum("noij,nj->noi", R[order], pts) + t[order]
+    px = cam_ops.project(cam, pc[..., :2] / pc[..., 2:3])
+    meas_valid = ((pc[..., 2] > 0.1) & cam_ops.in_image(cam, px, border=5.0)
+                  & torch.from_numpy(anchor[:, None] + np.arange(O) < K))
+    level = torch.from_numpy(rng.integers(0, 3, (N, O)).astype(np.float32))
+    noise = torch.from_numpy(
+        rng.normal(scale=BA_NOISE_PX, size=(N, O, 2)).astype(np.float32))
+    uv = px + noise * (2.0 ** level)[..., None]
+    moved = meas_valid & torch.from_numpy(
+        rng.uniform(size=(N, O)) < BA_OUTLIER_SHARE)
+    jump = torch.from_numpy(rng.uniform(30, 60, (N, O, 2)).astype(np.float32))
+    uv = torch.where(moved[..., None], uv + jump, uv)
+    dmu = torch.from_numpy(rng.normal(scale=0.01, size=(K, 6)).astype(
+        np.float32))
+    dmu[0] = 0.0
+    R0, t0 = lie.se3_mul(*lie.se3_exp(dmu), R, t)
+    pts0 = pts + torch.from_numpy(
+        rng.normal(scale=0.02, size=(N, 3)).astype(np.float32))
+    fixed = torch.zeros(K, dtype=torch.bool)
+    fixed[0] = True
+    prob = bundle.BAProblem(
+        cam_R=R0, cam_t=t0, cam_fixed=fixed,
+        cam_valid=torch.ones(K, dtype=torch.bool), points=pts0,
+        point_valid=meas_valid.sum(1) >= 2,
+        meas_kf=order.to(torch.int32), meas_uv=uv,
+        meas_sqrt_inv_noise=2.0 ** -level, meas_valid=meas_valid,
+    )
+    return prob, cam, moved & prob.point_valid[:, None]
+
+
+def objective_at(prob, cam, res, sigma_sq, bundle, mestimator):
+    """The robust objective of a result at a given sigma^2 (Tukey scores
+    plus one per ejected measurement): runs that part ways in their lambda
+    schedules end at slightly different sigmas, so paths are compared at
+    one."""
+    kept = prob.replace(meas_valid=res.meas_valid)
+    sp, valid = bundle._sanitized(kept)
+    _, _, err_sq, z_bad = bundle._project_all(cam, res.cam_R, res.cam_t,
+                                              res.points, sp)
+    score = mestimator.objective_score(err_sq, sigma_sq)
+    return float(torch.sum(torch.where(valid & ~z_bad, score, 0.0))
+                 + res.outlier_meas.sum())
+
+
+def run_ba_path(prob, cam, assembly, solver, config, bundle):
+    """One bundle_adjust run of a path: (result, wall ms, LM iterations,
+    CG solves, CG iterations, CG reads)."""
+    bc = config.bundle
+    bundle.HOST_READS.update(bundle_adjust=0, cg=0)
+    bundle.CG_STATS.update(solves=0, iterations=0)
+    sync(prob.points.device)
+    t0 = time.perf_counter()
+    res = bundle.bundle_adjust(
+        prob, cam, max_iters=BIG_MAX_ITERS, point_block=bc.point_block,
+        assembly=assembly, solver=solver, band_halfwidth=BIG_BAND,
+        cg_iters=bc.cg_iters, cg_tol=bc.cg_tol)
+    sync(prob.points.device)
+    return (res, 1e3 * (time.perf_counter() - t0),
+            bundle.HOST_READS["bundle_adjust"], bundle.CG_STATS["solves"],
+            bundle.CG_STATS["iterations"], bundle.HOST_READS["cg"])
+
+
+def ba_path_stages(prob, cam, assembly, solver, config, bundle, wls):
+    """One LM iteration of a path at the problem's first state, stage by
+    stage (CUDA events around the eager calls, median of 5; a CG stage
+    includes its reads)."""
+    bc = config.bundle
+    K = prob.cam_R.shape[0]
+    sp, valid = bundle._sanitized(prob)
+    fixed_m = sp.cam_fixed[sp.meas_kf.long()]
+    lam = bc.lambda_init
+    ms = {}
+    ms["linearize"], lin = event_ms(lambda: bundle._linearize(
+        sp, cam, sp.cam_R, sp.cam_t, sp.points, valid, fixed_m,
+        bundle.MIN_SIGMA_SQ), reps=5)
+    if solver == "chol":
+        ms["schur"], (Sm, E, Vinv, free) = event_ms(
+            lambda: bundle._reduced_system(lin, sp, lam, bc.point_block,
+                                           assembly, BIG_BAND), reps=5)
+        ms["cholesky"], upd = event_ms(
+            lambda: wls.solve_spd(Sm, E.reshape(-1), ridge=0.0), reps=5)
+        upd = upd.reshape(K, 6)
+    else:
+        ms["assembly + cg"], (upd, Vinv, free) = event_ms(
+            lambda: bundle._cg_camera_update(
+                lin, sp, lam, bc.point_block, solver, BIG_BAND, bc.cg_iters,
+                bc.cg_tol), reps=5)
+    ms["back-substitution"], _ = event_ms(lambda: bundle._back_substitute(
+        lin, sp, cam, sp.cam_R, sp.cam_t, sp.points, upd, Vinv, free,
+        bc.update_convergence), reps=5)
+    return ms
+
+
+def phase_ba_large(device, card, config, bundle, cam_ops, lie, mestimator,
+                   synthetic, wls):
+    """Bundle adjustment at 128 keyframe slots through each (assembly,
+    solver) path on the card and on the CPU: outcome by path, card against
+    CPU, each path against the dense one, CG iterations and reads per solve,
+    one LM iteration by stage."""
+    prob_cpu, cam_cpu, moved = make_band_problem(config, BIG_SEED, bundle,
+                                                 cam_ops, synthetic, lie)
+    prob, cam = prob_cpu.to(device), cam_cpu.to(device)
+    n_meas, n_moved = int(prob_cpu.meas_valid.sum()), int(moved.sum())
+    offset = bundle.max_pair_offset(prob.meas_kf,
+                                    prob.meas_valid & prob.point_valid[:, None])
+    rms0 = float(bundle.reprojection_rms(prob, cam))
+    print(f"BA at {BIG_K} cameras: {int(prob_cpu.point_valid.sum())} of "
+          f"{BIG_N} points, {n_meas} measurements ({n_moved} moved), "
+          f"largest co-observation offset {offset} (band {BIG_BAND}), rms "
+          f"{rms0:.4f}; {BIG_MAX_ITERS} LM iterations per run")
+    check(offset <= BIG_BAND, f"pair offset {offset} exceeds the band")
+    runs = {}
+    run_ba_path(prob, cam, "scatter", "chol", config, bundle)  # warm-up
+    for assembly, solver in BIG_PAIRS:
+        name = f"{assembly}+{solver}"
+        card_run = run_ba_path(prob, cam, assembly, solver, config, bundle)
+        cpu_run = run_ba_path(prob_cpu, cam_cpu, assembly, solver, config,
+                              bundle)
+        runs[name] = (card_run, cpu_run)
+    dense = runs["scatter+chol"][0][0]
+    sigma_ref = dense.sigma_squared
+    obj_dense = objective_at(prob, cam, dense, sigma_ref, bundle, mestimator)
+    rms_dense = ba_outcome(prob, cam, dense, bundle, mestimator)[0]
+    for (assembly, solver) in BIG_PAIRS:
+        name = f"{assembly}+{solver}"
+        (res, ms, iters, solves, cg_it, cg_reads), cpu = runs[name]
+        res_c, cpu_ms = cpu[0], cpu[1]
+        rms1, obj1 = ba_outcome(prob, cam, res, bundle, mestimator)
+        rms_c, obj_c = ba_outcome(prob_cpu, cam_cpu, res_c, bundle,
+                                  mestimator)
+        obj_common = objective_at(prob, cam, res, sigma_ref, bundle,
+                                  mestimator)
+        ejected = res.outlier_meas.cpu()
+        hit = int((ejected & moved).sum())
+        differ = int((ejected != res_c.outlier_meas).sum())
+        stages = ba_path_stages(prob, cam, assembly, solver, config, bundle,
+                                wls)
+        cg = (f"; CG {cg_it / solves:.1f} iterations and "
+              f"{cg_reads / solves:.2f} reads per solve over {solves} "
+              f"solves (CPU: {cpu[4] / max(cpu[3], 1):.1f} iterations)"
+              if solves else "")
+        print(f"BA at {BIG_K} cameras, {name}: rms {rms0:.4f} -> "
+              f"{rms1:.4f}, objective {obj1:.3f} (at the dense run's sigma "
+              f"{obj_common:.3f}, dense {obj_dense:.3f}: "
+              f"{100 * (obj_common / obj_dense - 1):+.4f}%), ejected "
+              f"{int(ejected.sum())} ({hit} of the moved ones), "
+              f"{int(res.accepted)} steps accepted, converged "
+              f"{bool(res.converged)}; {ms:.3f} ms for {iters} LM iterations "
+              f"= {ms / iters:.3f} ms each{cg}  [{card}]")
+        print(f"  {name} card vs CPU: rms {rms1:.4f} / {rms_c:.4f}, "
+              f"objective {obj1:.3f} / {obj_c:.3f}, ejected sets differ at "
+              f"{differ} measurements (CPU {cpu_ms / 1e3:.1f} s); one LM "
+              f"iteration by stage: " + ", ".join(
+                  f"{k} {v:.3f} ms" for k, v in stages.items())
+              + f", sum {sum(stages.values()):.3f} ms  [{card}]")
+        check(rms1 < BA_RMS_AFTER, f"{name} ended at rms {rms1}")
+        check(hit >= BA_EJECTED_SHARE * n_moved,
+              f"{name} ejected only {hit} of {n_moved} moved measurements")
+        check(bool(torch.isfinite(res.cam_t).all()
+                   and torch.isfinite(res.points).all()),
+              f"{name} left a non-finite state")
+        check(torch.equal(res.cam_t[0], prob.cam_t[0]),
+              f"{name} moved the fixed camera")
+        check(abs(rms1 - rms_c) <= BA_AGREE * rms_c
+              and abs(obj1 - obj_c) <= BA_AGREE * obj_c
+              and differ <= 0.01 * n_meas,
+              f"{name}: card and CPU differ (rms {rms1} / {rms_c}, objective "
+              f"{obj1} / {obj_c}, {differ} ejections)")
+        check(abs(obj_common - obj_dense) <= BIG_DENSE_AGREE * obj_dense
+              and abs(rms1 - rms_dense) <= BIG_DENSE_AGREE * rms_dense,
+              f"{name} is off the dense path: objective {obj_common} / "
+              f"{obj_dense}, rms {rms1} / {rms_dense}")
+        if solver != "chol":
+            check(solves == iters and cg_it > 0,
+                  f"{name}: {solves} CG solves for {iters} LM iterations")
+
+
+def phase_large_map(device, card, fast, slam, fstep, bundle, synthetic,
+                    cam_ops, lie, default_keyframes):
+    """The large-map facade: tools/run_large_map_slam.py's configuration
+    (max_keyframes 128 > dense_solver_max_cams, min_frames_between_kfs 4)
+    in sync mode over its traverse (a 4096^2 texture, 12 m sideways),
+    rendered on the card. Returns the FAST launches of the run."""
+    from visualslam_android_tpu_torch.config import (
+        MapMakerConfig,
+        SLAMConfig,
+        TrackerConfig,
+    )
+
+    config = SLAMConfig(tracker=TrackerConfig(min_frames_between_kfs=4),
+                        mapmaker=MapMakerConfig(max_keyframes=128))
+    tc = config.tracker
+    cam = cam_ops.make_camera(config.camera.params(), tc.width, tc.height,
+                              device=device)
+    rng = np.random.default_rng(11)
+    t0 = time.perf_counter()
+    scene = synthetic.make_planar_scene(rng, depth=4.0, tex_size=4096,
+                                        px_per_m=240.0, device=device)
+    R0, t0_ = synthetic.look_at_pose((0.0, 0.0, 0.0), target=(0, 0, 4.0),
+                                     device=device)
+    images = []
+    for k in list(range(LARGE_RUN)) + [LARGE_RUN - 1] * LARGE_HOLD:
+        s = k / max(LARGE_FRAMES - 1, 1)
+        mu = torch.tensor(
+            [12.0 * s, 0.15 * np.sin(9.0 * s), 0.25 * np.sin(5.0 * s), 0.0,
+             0.05 * np.sin(7.0 * s), 0.02 * np.sin(4.0 * s)],
+            dtype=torch.float32, device=device)
+        Rk, tk = lie.se3_mul(*lie.se3_exp(mu), R0, t0_)
+        images.append(synthetic.render(scene, cam, Rk, tk,
+                                       (tc.height, tc.width)))
+    sync(device)
+    print(f"large map: {LARGE_RUN} of the {LARGE_FRAMES} frames of the 12 m "
+          f"traverse and {LARGE_HOLD} at its last pose rendered in "
+          f"{time.perf_counter() - t0:.1f} s")
+    del scene
+
+    sys_ = slam.SLAMSystem(config, seed=0, device=device)
+    chosen, dispatched = {}, {}
+    choice = sys_._solver_choice
+
+    def spy():
+        c = choice()
+        chosen[f"{c[0]}+{c[1]}"] = chosen.get(f"{c[0]}+{c[1]}", 0) + 1
+        return c
+
+    ba_round = fstep.ba_round
+
+    def counted(*args, assembly, solver, cap=(), **kwargs):
+        key = f"{assembly}+{solver}" + (" (bootstrap prefix)" if cap else "")
+        if not cap and sys_.frame_idx > LARGE_RUN:
+            key += " (hold)"
+        dispatched[key] = dispatched.get(key, 0) + 1
+        sync(device)
+        t0 = time.perf_counter()
+        out = ba_round(*args, assembly=assembly, solver=solver, cap=cap,
+                       **kwargs)
+        sync(device)
+        ba_ms.setdefault(key, []).append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    ba_ms = {}
+    sys_._solver_choice = spy
+    # The facade's stage timer (synchronised stages) gives the time split.
+    sys_.timer.enabled = True
+    for name in fast.LAUNCHES:
+        fast.LAUNCHES[name] = 0
+    bundle.HOST_READS.update(bundle_adjust=0, cg=0)
+    bundle.CG_STATS.update(solves=0, iterations=0)
+    results = []
+    fstep.ba_round = counted
+    try:
+        sync(device)
+        t_wall = time.perf_counter()
+        for k, img in enumerate(images):
+            if k in (0, 6):
+                sys_.on_touch()
+            results.append(sys_.track_frame(img))
+        sync(device)
+        wall = time.perf_counter() - t_wall
+    finally:
+        fstep.ba_round = ba_round
+    launches = dict(fast.LAUNCHES)
+    del images
+    n_frames = len(results)
+    tracked = sum(r.phase == slam.PHASE_TRACKING and not r.lost
+                  for r in results)
+    counts = torch.stack([sys_.slam_map.points.count(),
+                          sys_.slam_map.keyframes.count()]).tolist()
+    n_pts, n_kf = int(counts[0]), int(counts[1])
+    finite = bool(torch.isfinite(sys_.slam_map.points.pos_w).all()
+                  and torch.isfinite(sys_.slam_map.keyframes.t).all())
+    reads = (sum(sys_.host_reads.values()) + bundle.HOST_READS["bundle_adjust"]
+             + bundle.HOST_READS["cg"])
+    cg = dict(bundle.CG_STATS)
+    n_reloc = sum(r.message.startswith("Relocalized") for r in results)
+    n_front = len(results) + n_reloc
+    print(f"large map: {tracked} of {n_frames} frames tracked, "
+          f"{n_kf} keyframes (the default run made {default_keyframes}), "
+          f"{n_pts} points, map finite {finite}; {n_frames / wall:.3f} "
+          f"frames/s over {wall:.1f} s (no claim)  [{card}]")
+    print(f"large map: solver choices {chosen}; bundle-adjustment rounds by "
+          f"path {dispatched}; CG {cg['iterations'] / max(cg['solves'], 1):.1f}"
+          f" iterations and {bundle.HOST_READS['cg'] / max(cg['solves'], 1):.2f}"
+          f" reads per solve over {cg['solves']} solves; host reads "
+          f"{dict(sys_.host_reads, bundle_adjust=bundle.HOST_READS['bundle_adjust'], cg=bundle.HOST_READS['cg'])}"
+          f" = {reads / max(tracked, 1):.3f} per tracked frame")
+    print("large map, time by facade stage (StageTimer, synchronised):")
+    for line in sys_.timer.report().splitlines():
+        print(f"  {line}")
+    for key, ms in sorted(ba_ms.items()):
+        print(f"  bundle adjustment {key}: {len(ms)} rounds, median "
+              f"{statistics.median(ms):.3f} ms, max {max(ms):.3f} ms, sum "
+              f"{sum(ms):.3f} ms  [{card}]")
+    print(f"large map: FAST launches {launches}: {n_front} front-end runs "
+          f"({len(results)} frames + {n_reloc} relocalized), {n_kf} "
+          f"keyframes inserted")
+    scaled = {k: v for k, v in dispatched.items() if "prefix" not in k}
+    check(scaled and {k.split()[0] for k in scaled}
+          <= {"band+band_pcg", "scatter+pcg"},
+          f"bundle adjustments outside the band / CG paths: {dispatched}")
+    check(sum(chosen.values()) == sum(scaled.values()),
+          f"{chosen} choices for {scaled} rounds")
+    check(finite, "the large map holds a NaN")
+    check(tracked > LARGE_MIN_TRACKED * n_frames,
+          f"only {tracked} of {n_frames} frames tracked")
+    check(n_kf > default_keyframes,
+          f"{n_kf} keyframes, not above the default run's "
+          f"{default_keyframes}")
+    check(launches["fast_detect_levels"] == n_front,
+          f"fast_detect_levels launched {launches['fast_detect_levels']} "
+          f"times for {n_front} front-end runs")
+    check(launches["fast_nonmax_levels"] == n_kf,
+          f"fast_nonmax_levels launched {launches['fast_nonmax_levels']} "
+          f"times for {n_kf} keyframes")
+    return launches
+
+
+def write_tum_sequence(root, device, synthetic, cam_ops, lie, imageio):
+    """tools/make_tum_synthetic.py's clean sequence (seed 33, a 2048^2
+    texture of 1400 blobs at 300 px/m, 640x480, TUM_FRAMES frames),
+    rendered by the port on the card and written as PNG files with rgb.txt
+    and groundtruth.txt. Returns the camera centres."""
+    from scipy.spatial.transform import Rotation
+
+    from visualslam_android_tpu_torch.config import CameraConfig
+
+    rng = np.random.default_rng(33)
+    w, h = 640, 480
+    cam = cam_ops.make_camera(CameraConfig().params(), w, h, device=device)
+    scene = synthetic.make_planar_scene(rng, depth=4.0, tex_size=2048,
+                                        px_per_m=300.0, n_blobs=1400,
+                                        device=device)
+    R0, t0 = synthetic.look_at_pose((0.0, 0.0, 0.0), device=device)
+    os.makedirs(os.path.join(root, "rgb"), exist_ok=True)
+    ts0 = 1305031100.0
+    rgb_lines = ["# color images", "# synthetic", "# timestamp filename"]
+    gt_lines = ["# ground truth trajectory",
+                "# timestamp tx ty tz qx qy qz qw"]
+    centers = []
+    for k in range(TUM_FRAMES):
+        s = k / max(TUM_FRAMES - 1, 1)
+        mu = torch.tensor(
+            [0.8 * np.sin(3.14 * s), 0.12 * np.sin(5.0 * s), 0.10 * s,
+             0.03 * np.sin(4.0 * s), 0.20 * np.sin(3.14 * s),
+             0.05 * np.sin(2.0 * s)], dtype=torch.float32, device=device)
+        R, t = lie.se3_mul(*lie.se3_exp(mu), R0, t0)
+        img = synthetic.render(scene, cam, R, t, (h, w))
+        ts = ts0 + k / 30.0
+        name = f"rgb/{ts:.6f}.png"
+        imageio.write_png(os.path.join(root, name),
+                          img.clamp(0, 255).to(torch.uint8).cpu().numpy())
+        rgb_lines.append(f"{ts:.6f} {name}")
+        R, t = R.cpu().numpy(), t.cpu().numpy()
+        C = -R.T @ t
+        centers.append(C)
+        qx, qy, qz, qw = Rotation.from_matrix(R.T).as_quat()
+        gt_lines.append(f"{ts:.6f} {C[0]:.6f} {C[1]:.6f} {C[2]:.6f} "
+                        f"{qx:.6f} {qy:.6f} {qz:.6f} {qw:.6f}")
+    for fname, lines in (("rgb.txt", rgb_lines),
+                         ("groundtruth.txt", gt_lines)):
+        with open(os.path.join(root, fname), "w") as f:
+            f.write("\n".join(lines) + "\n")
+    return np.stack(centers)
+
+
+def phase_run_slam(device, card, fast, run_slam, serialization, synthetic,
+                   cam_ops, lie, imageio, native_runtime):
+    """The command line on a TUM-format sequence: run_slam --dataset tum
+    --frames 120 --json --save-map, through its main(), on the card; the
+    saved map loaded back against the live one. Returns the FAST launches
+    of the run."""
+    import io
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        centers = write_tum_sequence(root, device, synthetic, cam_ops, lie,
+                                     imageio)
+        span = float(np.linalg.norm(centers.max(0) - centers.min(0)))
+        print(f"run_slam: {TUM_FRAMES} 640x480 PNG frames of the TUM-format "
+              f"sequence written in {time.perf_counter() - t0:.1f} s")
+        map_path = os.path.join(root, "map.npz")
+        argv = ["--dataset", "tum", "--root", root, "--frames",
+                str(TUM_FRAMES), "--json", "--save-map", map_path,
+                "--device", str(device)]
+        for name in fast.LAUNCHES:
+            fast.LAUNCHES[name] = 0
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            report, sys_ = run_slam.main(argv)
+        launches = dict(fast.LAUNCHES)
+        line = out.getvalue().strip().splitlines()[-1]
+        print(f"run_slam {' '.join(argv[:6])} --json --save-map ...: {line}")
+        check(json.loads(line) == report, "the report line is not the report")
+        loaded, cfg = serialization.load_map(map_path, device=device)
+        leaves_live, leaves_loaded = {}, {}
+        flatten = serialization._flatten
+        flatten("", sys_.slam_map, leaves_live)
+        flatten("", loaded, leaves_loaded)
+        same = all(np.array_equal(leaves_live[k], leaves_loaded[k])
+                   for k in leaves_live) and set(leaves_live) == set(
+                       leaves_loaded)
+    ate = report.get("ate_rmse", float("inf"))
+    n_reloc = sys_.host_reads["reloc"]
+    try:
+        native_runtime.load()
+        native = "the C++ runtime builds here"
+    except native_runtime.NativeRuntimeUnavailable as e:
+        why = [ln for ln in str(e).splitlines() if "error" in ln]
+        native = (f"the C++ runtime does not build here "
+                  f"({(why or [str(e)])[0].strip()})")
+    print(f"run_slam: frame reader {report.get('reader')}: {native}")
+    print(f"run_slam on the card: reader {report.get('reader')}, "
+          f"{report['tracked']} of {TUM_FRAMES} tracked, "
+          f"{report['keyframes']} keyframes, {report['map_points']} points, "
+          f"ATE {ate} m over a span of {span:.4f} m "
+          f"({100 * ate / span:.3f}%; the JAX package's run_slam on a TPU "
+          f"read {TUM_JAX_ATE_M} m, {TUM_JAX_ATE_PCT}%, artifacts/ATE_r5.json "
+          f"clean_640x480: reported, not claimed), {report['fps']} frames/s "
+          f"(no claim); saved map equals the live one: {same}; FAST launches "
+          f"{launches}  [{card}]")
+    check(report.get("reader") in ("native", "numpy"),
+          f"no frame reader reported: {report}")
+    check(report["tracked"] > TUM_MIN_TRACKED,
+          f"run_slam tracked {report['tracked']} of {TUM_FRAMES}")
+    check(report["keyframes"] >= 2, f"{report['keyframes']} keyframes")
+    check(ate < TUM_ATE_SHARE * span, f"ATE {ate} over a span of {span}")
+    check(same and cfg == sys_.config, "the saved map does not load back "
+          "equal to the live one")
+    n_front = TUM_FRAMES + n_reloc
+    check(launches["fast_detect_levels"] >= TUM_FRAMES
+          and launches["fast_detect_levels"] <= n_front
+          and launches["fast_nonmax_levels"] == report["keyframes"],
+          f"FAST launches {launches} for {TUM_FRAMES} frames and "
+          f"{report['keyframes']} keyframes")
+    return launches
 
 
 def sync(device):
@@ -1464,7 +1981,9 @@ def main():
     from visualslam_android_tpu_torch.ops import cuda_build, fast, image, lie
     from visualslam_android_tpu_torch.ops import mestimator, wls
     from visualslam_android_tpu_torch.ops import sbi as sbi_ops
+    from visualslam_android_tpu_torch import run_slam
     from visualslam_android_tpu_torch.utils import ate, datasets, fixtures
+    from visualslam_android_tpu_torch.utils import imageio, serialization
     from visualslam_android_tpu_torch.utils import synthetic
 
     check("jax" not in sys.modules, "the port imported jax")
@@ -1633,6 +2152,8 @@ def main():
         fast.LAUNCHES[key] = 0
     phase_ba_full(device, card, b_config, bundle, cam_ops, lie, mestimator,
                   synthetic, wls)
+    phase_ba_large(device, card, b_config, bundle, cam_ops, lie, mestimator,
+                   synthetic, wls)
     ba_launches = dict(fast.LAUNCHES)
 
     # ---- 10. full SLAM through the facade ----
@@ -1643,6 +2164,16 @@ def main():
                    bundle)
     del slam_rec
 
+    # ---- 11. the large-map facade ----
+    large_launches = phase_large_map(
+        device, card, fast, slam, frame_step, bundle, synthetic, cam_ops, lie,
+        slam_launches["fast_nonmax_levels"])
+
+    # ---- 12. the command line on a TUM-format sequence ----
+    cli_launches = phase_run_slam(device, card, fast, run_slam,
+                                  serialization, synthetic, cam_ops, lie,
+                                  imageio, native_runtime)
+
     one_frame_ms = sum(r[2] for r in rows)
     one_frame_plain = sum(r[3] for r in rows)
     source = "visualslam_android_tpu_torch/csrc/fast.cu"
@@ -1652,11 +2183,14 @@ def main():
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces,
                 "launches": (chain_launches[name] + boot_launches[name]
-                             + ba_launches[name] + slam_launches[name]),
+                             + ba_launches[name] + slam_launches[name]
+                             + large_launches[name] + cli_launches[name]),
                 "launches_by_path": {"chain": chain_launches[name],
                                      "bootstrap": boot_launches[name],
                                      "ba_full_size": ba_launches[name],
-                                     "slam": slam_launches[name]},
+                                     "slam": slam_launches[name],
+                                     "large_map": large_launches[name],
+                                     "run_slam": cli_launches[name]},
                 "library_ms": None, **measured}
 
     print(json.dumps({"kernels": [

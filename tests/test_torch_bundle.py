@@ -549,14 +549,16 @@ def test_ba_points_without_measurements_and_failed_solves(noisy):
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(solver="pcg"), 11), (dict(solver="band_pcg"), 11),
-    (dict(assembly="band"), 11), (dict(sigma_mode="hist"), 12),
+    (dict(solver="pcg", sigma_mode="hist"), 12),
+    (dict(solver="band_pcg", reduce_mode="halo"), 12),
+    (dict(assembly="band", axis_name="points"), 12),
+    (dict(sigma_mode="hist"), 12),
     (dict(reduce_mode="halo"), 12), (dict(axis_name="points"), 12),
 ])
 def test_unported_modes_raise(noisy, kwargs, item):
-    """The JAX package's other solvers, assemblies and multi-device modes
-    raise NotImplementedError naming their ROADMAP item; no other solver
-    runs in their place. An unknown name is a ValueError."""
+    """The JAX package's multi-device modes raise NotImplementedError
+    naming their ROADMAP item, also beside the band and CG solvers; no other
+    mode runs in their place. An unknown name is a ValueError."""
     _, _, tp, t_cam = _both(noisy["prob"], noisy["cam"])
     tb.HOST_READS["bundle_adjust"] = 0
     with pytest.raises(NotImplementedError, match=f"item {item}"):

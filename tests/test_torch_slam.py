@@ -314,14 +314,18 @@ def test_local_ba_branch(monkeypatch):
 
 
 def test_solver_choice_beyond_the_dense_limit_raises():
+    """Beyond dense_solver_max_cams the choice no longer raises: on an empty
+    map every pair fits the band (one read, counted); within the limit it
+    is the dense path without a read."""
     cfg = _config(tconfig)
     cfg = dataclasses.replace(cfg, mapmaker=dataclasses.replace(
         cfg.mapmaker, max_keyframes=cfg.bundle.dense_solver_max_cams + 1))
     sys_ = tslam.SLAMSystem(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        sys_._solver_choice()
-    assert tslam.SLAMSystem(_config(tconfig), device="cpu")._solver_choice() \
-        == ("scatter", "chol")
+    assert sys_._solver_choice() == ("band", "band_pcg")
+    assert sys_.host_reads["solver"] == 1
+    dense = tslam.SLAMSystem(_config(tconfig), device="cpu")
+    assert dense._solver_choice() == ("scatter", "chol")
+    assert dense.host_reads["solver"] == 0
 
 
 def test_resolve_pending_ladder():

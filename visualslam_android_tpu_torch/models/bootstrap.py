@@ -27,6 +27,7 @@ final depth and point count.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Optional, Tuple
 
@@ -132,6 +133,11 @@ def _global_ba(slam_map: SLAMMap, never_retry, failure_mask, cam,
     return sm, never_retry, failure_mask, conv, map_ok
 
 
+@contextlib.contextmanager
+def _no_stage(name):
+    yield
+
+
 def trail_start(frame: FrameData, config: SLAMConfig) -> TrailState:
     """TrailTracking_Start (Tracker.cc:264-291): MiniPatches at the best
     Shi-Tomasi candidates of level 0, up to max_trails of them."""
@@ -159,30 +165,36 @@ def trail_advance(trails: TrailState, frame: FrameData,
 
 def init_from_stereo(trails: TrailState, frame_second: FrameData, cam,
                      config: SLAMConfig, homography_trial_idx=None,
-                     plane_trial_idx=None, generator=None) -> StereoInit:
+                     plane_trial_idx=None, generator=None,
+                     timer=None) -> StereoInit:
     """InitFromStereo (MapMaker.cc:204-376) from the trails' first and
     current positions, `frame_second` being the frame the trails were last
     advanced in. The MLESAC and plane-RANSAC draws are the optional
     `homography_trial_idx` [mlesac_trials, 4] and `plane_trial_idx`
-    [plane_ransac_trials, 3], else they come from `generator`."""
+    [plane_ransac_trials, 3], else they come from `generator`. A
+    utils/profiling.StageTimer `timer` times the stages (init_homography,
+    init_points, init_ba5, init_grow, init_ba_conv, init_plane_tail)."""
     cfg, mc = config, config.mapmaker
+    stage = timer.stage if timer is not None else _no_stage
     device = trails.cur_pos.device
     extras_second = kf_mod.make_frame_extras(frame_second, cfg)
     a, b, valid = trails.init_pos, trails.cur_pos, trails.valid
 
     # ---- homography (MapMaker.cc:214-247) ----
-    m_a = cam_ops.unproject(cam, a)
-    m_b = cam_ops.unproject(cam, b)
-    _, jac = cam_ops.project_derivs(cam, m_b)
-    res = homography.compute(
-        m_a, m_b, jac, valid, max_pixel_error=mc.max_pixel_error,
-        n_trials=mc.mlesac_trials, refine_iters=mc.homography_refine_iters,
-        trial_idx=homography_trial_idx, generator=generator,
-    )
-    # One read for the two host decisions (success, zero baseline).
-    success, t_mag = torch.stack([
-        res.success.to(torch.float32), torch.linalg.vector_norm(res.t)
-    ]).tolist()
+    with stage("init_homography"):
+        m_a = cam_ops.unproject(cam, a)
+        m_b = cam_ops.unproject(cam, b)
+        _, jac = cam_ops.project_derivs(cam, m_b)
+        res = homography.compute(
+            m_a, m_b, jac, valid, max_pixel_error=mc.max_pixel_error,
+            n_trials=mc.mlesac_trials,
+            refine_iters=mc.homography_refine_iters,
+            trial_idx=homography_trial_idx, generator=generator,
+        )
+        # One read for the two host decisions (success, zero baseline).
+        success, t_mag = torch.stack([
+            res.success.to(torch.float32), torch.linalg.vector_norm(res.t)
+        ]).tolist()
     if success <= 0.5:
         return StereoInit(False, "homography failed", homography=res)
     if t_mag == 0.0:
@@ -191,17 +203,18 @@ def init_from_stereo(trails: TrailState, frame_second: FrameData, cam,
     t2 = res.t * (mc.wiggle_scale / t_mag)
 
     # ---- the two keyframes and the trail points (MapMaker.cc:249-339) ----
-    sm = map_store.empty_map(cfg, device=device)
-    kf_mod.insert_keyframe(
-        sm.keyframes, 0, trails.frame, trails.extras,
-        torch.eye(3, device=device), torch.zeros(3, device=device),
-        fixed=True,
-    )
-    kf_mod.insert_keyframe(sm.keyframes, 1, frame_second, extras_second,
-                           R2, t2, fixed=False)
-    sm, n_ok_dev = fstep.init_points_step(sm, frame_second, m_a, a, b, valid,
-                                          R2, t2, cam, cfg)
-    n_ok = int(n_ok_dev)
+    with stage("init_points"):
+        sm = map_store.empty_map(cfg, device=device)
+        kf_mod.insert_keyframe(
+            sm.keyframes, 0, trails.frame, trails.extras,
+            torch.eye(3, device=device), torch.zeros(3, device=device),
+            fixed=True,
+        )
+        kf_mod.insert_keyframe(sm.keyframes, 1, frame_second, extras_second,
+                               R2, t2, fixed=False)
+        sm, n_ok_dev = fstep.init_points_step(sm, frame_second, m_a, a, b,
+                                              valid, R2, t2, cam, cfg)
+        n_ok = int(n_ok_dev)
     if n_ok < 10:
         return StereoInit(False, "fewer than 10 points", homography=res,
                           R2=R2, t2=t2, n_ok=n_ok)
@@ -213,11 +226,12 @@ def init_from_stereo(trails: TrailState, frame_second: FrameData, cam,
     cap = (init_point_slots(cfg), 2)
     non_finite = StereoInit(False, NON_FINITE, homography=res, R2=R2, t2=t2,
                             n_ok=n_ok)
-    for _ in range(N_INIT_BA_ROUNDS):
-        sm, never_retry, failure_mask, _, map_ok = _global_ba(
-            sm, never_retry, failure_mask, cam, cfg, 10, cap)
-        if not map_ok:
-            return non_finite
+    with stage("init_ba5"):
+        for _ in range(N_INIT_BA_ROUNDS):
+            sm, never_retry, failure_mask, _, map_ok = _global_ba(
+                sm, never_retry, failure_mask, cam, cfg, 10, cap)
+            if not map_ok:
+                return non_finite
     sm = kf_mod.refresh_scene_depth(sm, 0)
     sm = kf_mod.refresh_scene_depth(sm, 1)
     depth = sm.keyframes.depth_mean[0].clone()
@@ -225,33 +239,36 @@ def init_from_stereo(trails: TrailState, frame_second: FrameData, cam,
 
     # ---- epipolar growth from keyframe 1 (MapMaker.cc:355-358) ----
     new_points = torch.zeros(N, dtype=torch.bool, device=device)
-    for level in INIT_GROW_LEVELS:
-        sm, new_points = fstep.add_map_points_step(sm, new_points, cam, 1,
-                                                   level, cfg)
+    with stage("init_grow"):
+        for level in INIT_GROW_LEVELS:
+            sm, new_points = fstep.add_map_points_step(sm, new_points, cam,
+                                                       1, level, cfg)
 
     # ---- BA until converged (MapMaker.cc:363-367) ----
     converged, conv_rounds = False, 0
-    while not converged and conv_rounds < MAX_CONV_BA_ROUNDS:
-        sm, never_retry, failure_mask, converged, map_ok = _global_ba(
-            sm, never_retry, failure_mask, cam, cfg, 20, cap)
-        conv_rounds += 1
-        if not map_ok:
-            return non_finite
+    with stage("init_ba_conv"):
+        while not converged and conv_rounds < MAX_CONV_BA_ROUNDS:
+            sm, never_retry, failure_mask, converged, map_ok = _global_ba(
+                sm, never_retry, failure_mask, cam, cfg, 20, cap)
+            conv_rounds += 1
+            if not map_ok:
+                return non_finite
 
     # ---- dominant-plane alignment (MapMaker.cc:369-372) ----
     # Applied as a masked transform (identity when the RANSAC found no
     # plane), so plane_ok is not read back.
-    Rp, tp, plane_ok = mapmaker.calc_plane_aligner(
-        sm, cfg, trial_idx=plane_trial_idx, generator=generator
-    )
-    Rp = torch.where(plane_ok, Rp, torch.eye(3, device=device))
-    tp = torch.where(plane_ok, tp, torch.zeros(3, device=device))
-    sm = mapmaker.apply_global_transformation(sm, Rp, tp)
-    sm = sm.replace(good=torch.ones_like(sm.good))
-    # One last read, for the host's mirrors (depth, point count).
-    _, n_points = torch.stack([
-        sm.keyframes.depth_mean[0], sm.points.count().to(torch.float32)
-    ]).tolist()
+    with stage("init_plane_tail"):
+        Rp, tp, plane_ok = mapmaker.calc_plane_aligner(
+            sm, cfg, trial_idx=plane_trial_idx, generator=generator
+        )
+        Rp = torch.where(plane_ok, Rp, torch.eye(3, device=device))
+        tp = torch.where(plane_ok, tp, torch.zeros(3, device=device))
+        sm = mapmaker.apply_global_transformation(sm, Rp, tp)
+        sm = sm.replace(good=torch.ones_like(sm.good))
+        # One last read, for the host's mirrors (depth, point count).
+        _, n_points = torch.stack([
+            sm.keyframes.depth_mean[0], sm.points.count().to(torch.float32)
+        ]).tolist()
     return StereoInit(
         True, "", homography=res, R2=R2, t2=t2, n_ok=n_ok,
         n_points=int(n_points), slam_map=sm,

@@ -22,15 +22,30 @@ jni/Bundle.{h,cc}; Hartley & Zisserman MVG Algorithm A6.4):
 
 Measurements live in a point-major [N, O] table; U and eps_a are
 ``index_add_`` sums over it. The Schur correction is assembled from each
-point's O x O camera-pair blocks, added into S by a flat pair index
-(``_schur_blocks_scatter``); S is solved by a dense Cholesky
-factorization. The JAX package's other assemblies and solvers (one-hot
-contractions, block band, conjugate gradients) and its multi-device
-reductions are not ported: their names raise NotImplementedError.
+point's O x O camera-pair blocks, added by a flat pair index into the
+dense S (``_schur_blocks_scatter``) or into its block band
+(``_schur_blocks_band``: [K, 2P+1, 6, 6], every pair at most P keyframe
+slots apart). Solvers:
+
+- "chol": the dense [6K, 6K] system by a Cholesky factorization (from
+  either assembly; the band is spread back to dense);
+- "pcg": block-Jacobi preconditioned conjugate gradients that never form
+  S (each product is a gather by camera, two small contractions and an
+  ``index_add_`` over the measurement table);
+- "band_pcg": the same iteration on the block band.
+
+The JAX package's one-hot contractions ("onehot") name the same sums and
+run the scatter form here. Its multi-device reductions (a mesh axis, the
+histogram sigma, the halo reduction) are not ported: their names raise
+NotImplementedError.
 
 The two nested loops read the device once per inner iteration: three
 flags (objective rose, objective fell, update below the limit) in one
-transfer. ``HOST_READS`` counts those reads.
+transfer. The CG loop of JAX runs while the residual stays above the
+tolerance; here it runs in chunks of ``CG_CHUNK`` iterations with an
+on-device flag that freezes the iterate once the test fails, and reads the
+flag once per chunk, so the result is the while loop's. ``HOST_READS``
+counts both kinds of read; ``CG_STATS`` counts solves and iterations.
 """
 
 from __future__ import annotations
@@ -47,13 +62,18 @@ from visualslam_android_tpu_torch.utils.tensors import TensorTree
 
 MIN_SIGMA_SQ = 0.16  # (0.4)^2, Bundle.cc:224
 
-# Device-to-host reads made by bundle_adjust's loop control, one per inner
-# iteration. Callers set it to 0 and read it, as with ops/fast.LAUNCHES.
-HOST_READS = {"bundle_adjust": 0}
+# Device-to-host reads made by bundle_adjust's loop control: "bundle_adjust"
+# one per inner iteration, "cg" one per chunk of CG iterations. Callers set
+# them to 0 and read them, as with ops/fast.LAUNCHES.
+HOST_READS = {"bundle_adjust": 0, "cg": 0}
+# CG solves run and the iterations they took (frozen ones not counted).
+CG_STATS = {"solves": 0, "iterations": 0}
+# CG iterations issued between two reads of the convergence flag.
+CG_CHUNK = 16
 
 # What bundle_adjust runs, and what waits: name -> ROADMAP queue 1 item.
-_ASSEMBLIES = {"scatter": None, "onehot": None, "band": 11}
-_SOLVERS = {"chol": None, "pcg": 11, "band_pcg": 11}
+_ASSEMBLIES = {"scatter": None, "onehot": None, "band": None}
+_SOLVERS = {"chol": None, "pcg": None, "band_pcg": None}
 _SIGMA_MODES = {"gather": None, "hist": 12}
 _REDUCE_MODES = {"psum": None, "halo": 12}
 
@@ -156,15 +176,172 @@ def _schur_blocks_scatter(meas_kf, Y, W, eps_b, K, block: int):
     return pairs.view(K, K, 6, 6).permute(0, 2, 1, 3), E_corr
 
 
-def max_pair_offset(meas_kf, meas_valid) -> int:
-    """Largest |i - j| over co-observing camera pairs, read to the host
-    (what decides whether a block-band assembly holds every pair)."""
+def _schur_blocks_band(meas_kf, Y, W, eps_b, K, band: int, block: int):
+    """The Schur correction in block-band form, S_band [K, 2*band+1, 6, 6]
+    with S_band[i, d] the (i, i+d-band) camera-pair block, and E_corr
+    [K, 6]. A pair further apart than `band` is dropped (the JAX package
+    scatters it with mode="drop"): callers check max_pair_offset first.
+    Dropped pairs go to a dead row past the band, which index_add_ needs
+    in range. meas_kf must lie in [0, K)."""
+    N, O = meas_kf.shape
+    E_corr = _e_corr_scatter(meas_kf, Y, eps_b, K)
+    kf = meas_kf.long()
+    width = 2 * band + 1
+    dead = K * width
+    out = torch.zeros(dead + 1, 6, 6, dtype=Y.dtype, device=Y.device)
+    for n0 in range(0, N, block):
+        sl = slice(n0, n0 + block)
+        T = Y[sl, :, None] @ W[sl, None].transpose(-1, -2)
+        ii, jj = kf[sl, :, None], kf[sl, None, :]
+        dd = jj - ii + band
+        flat = torch.where((dd >= 0) & (dd < width), ii * width + dd, dead)
+        out.index_add_(0, flat.reshape(-1), T.reshape(-1, 6, 6))
+    return out[:dead].view(K, width, 6, 6), E_corr
+
+
+def _band_columns(K, band: int, device):
+    """(jj [K, 2*band+1] camera index of each band column, clamped into
+    [0, K), in_range [K, 2*band+1] bool)."""
+    jj = (torch.arange(K, device=device)[:, None]
+          + torch.arange(-band, band + 1, device=device)[None, :])
+    return jj.clamp(0, K - 1), (jj >= 0) & (jj < K)
+
+
+def _band_to_dense(S_band, K, band: int):
+    """The dense correction [K, 6, K, 6] from its block band."""
+    jj, ok = _band_columns(K, band, S_band.device)
+    ii = torch.arange(K, device=S_band.device)[:, None].expand_as(jj)
+    vals = torch.where(ok[..., None, None], S_band, 0.0)
+    dense = torch.zeros(K * K, 6, 6, dtype=S_band.dtype,
+                        device=S_band.device)
+    dense.index_add_(0, (ii * K + jj).reshape(-1), vals.reshape(-1, 6, 6))
+    return dense.view(K, K, 6, 6).permute(0, 2, 1, 3)
+
+
+def _cg_loop(apply_S, prec, b, cg_iters: int, cg_tol: float,
+             chunk: int = None):
+    """Preconditioned conjugate gradients on S x = b (S SPD through
+    apply_S): the JAX package's while loop, which stops once |r|^2 <=
+    cg_tol^2 |b|^2 or after cg_iters iterations. Iterations go out in
+    chunks of `chunk` (CG_CHUNK when None); an on-device flag freezes x, r,
+    z, p and rz once the test fails, so an iteration past the end changes
+    nothing, and the flag is read once per chunk. Returns x."""
+    chunk = CG_CHUNK if chunk is None else chunk
+    thresh = (cg_tol * cg_tol) * torch.sum(b * b)
+    x = torch.zeros_like(b)
+    r = b
+    z = prec(r)
+    p = z
+    rz = torch.sum(r * z)
+    active = torch.sum(r * r) > thresh
+    iters = torch.zeros((), dtype=torch.int32, device=b.device)
+    done, n_iter = 0, 0
+    while done < cg_iters:
+        for _ in range(min(chunk, cg_iters - done)):
+            Ap = apply_S(p)
+            denom = torch.sum(p * Ap)
+            alpha = torch.where(denom == 0.0, 0.0,
+                                rz / torch.where(denom == 0.0, 1.0, denom))
+            x_n = x + alpha * p
+            r_n = r - alpha * Ap
+            z_n = prec(r_n)
+            rz_n = torch.sum(r_n * z_n)
+            beta = torch.where(rz == 0.0, 0.0,
+                               rz_n / torch.where(rz == 0.0, 1.0, rz))
+            p_n = z_n + beta * p
+            x = torch.where(active, x_n, x)
+            r = torch.where(active, r_n, r)
+            z = torch.where(active, z_n, z)
+            p = torch.where(active, p_n, p)
+            rz = torch.where(active, rz_n, rz)
+            iters = iters + active.to(torch.int32)
+            active = active & (torch.sum(r * r) > thresh)
+        done += min(chunk, cg_iters - done)
+        HOST_READS["cg"] += 1
+        still, n_iter = torch.stack([active.to(torch.int32), iters]).tolist()
+        if not still:
+            break
+    CG_STATS["solves"] += 1
+    CG_STATS["iterations"] += n_iter
+    return x
+
+
+def _block_jacobi(M, free):
+    """Inverses of the 6x6 diagonal blocks M [K, 6, 6] (identity for a
+    camera that takes no update), without the synchronising error check
+    of torch.linalg.inv."""
+    eye6 = torch.eye(6, dtype=M.dtype, device=M.device)
+    M = torch.where(free[:, None, None], M + 1e-9 * eye6, eye6)
+    return torch.linalg.inv_ex(M).inverse
+
+
+def _pcg_camera_solve(U_star, free, meas_kf, W, Vinv, b, cg_iters: int,
+                      cg_tol: float):
+    """Matrix-free block-Jacobi preconditioned CG on the reduced camera
+    system S x = b, never forming S: one product is a gather of x by
+    measurement, two small contractions and an index_add_ by camera, O(N O)
+    whatever K. meas_kf must lie in [0, K)."""
+    Y = W @ Vinv[:, None]                  # [N, O, 6, 3]
+    Wt = W.transpose(-1, -2)               # [N, O, 3, 6]
+    kf = meas_kf.long()
+    kf_flat = kf.reshape(-1)
+    Minv = _block_jacobi(U_star, free)
+    fr = free[:, None]
+
+    def apply_S(x):
+        u = torch.sum((Wt @ x[kf][..., None])[..., 0], dim=1)   # [N, 3]
+        corr = (Y @ u[:, None, :, None])[..., 0]                 # [N, O, 6]
+        corr = torch.zeros_like(x).index_add_(0, kf_flat,
+                                              corr.reshape(-1, 6))
+        out = (U_star @ x[..., None])[..., 0] + 1e-9 * x - corr
+        return torch.where(fr, out, x)
+
+    def prec(r):
+        return (Minv @ r[..., None])[..., 0]
+
+    return _cg_loop(apply_S, prec, torch.where(fr, b, 0.0), cg_iters, cg_tol)
+
+
+def _band_pcg_solve(U_star, S_band, free, band: int, b, cg_iters: int,
+                    cg_tol: float):
+    """Block-Jacobi preconditioned CG on the block-band reduced system: one
+    product is a banded block matvec over K (2*band+1) 6x6 blocks. The
+    preconditioner is the diagonal block of S, U* - S_band[:, band]."""
+    K = U_star.shape[0]
+    jj, in_rng = _band_columns(K, band, U_star.device)
+    Sb = torch.where((in_rng & free[jj])[..., None, None], S_band, 0.0)
+    fr = free[:, None]
+
+    def apply_S(x):
+        xm = torch.where(fr, x, 0.0)
+        corr = torch.sum((Sb @ xm[jj][..., None])[..., 0], dim=1)
+        out = (U_star @ xm[..., None])[..., 0] + 1e-9 * xm - corr
+        return torch.where(fr, out, x)
+
+    Minv = _block_jacobi(U_star - Sb[:, band], free)
+
+    def prec(r):
+        return (Minv @ r[..., None])[..., 0]
+
+    return _cg_loop(apply_S, prec, torch.where(fr, b, 0.0), cg_iters, cg_tol)
+
+
+def pair_offset_tensor(meas_kf, meas_valid):
+    """Largest |i - j| over co-observing camera pairs, as a [] int32 tensor
+    on the table's device (0 without any valid measurement)."""
     big = torch.iinfo(torch.int32).max
     kf = meas_kf.to(torch.int32)
     hi = torch.where(meas_valid, kf, -big).amax(dim=1)
     lo = torch.where(meas_valid, kf, big).amin(dim=1)
     span = torch.where(meas_valid.any(dim=1), hi - lo, 0)
-    return int(span.max()) if span.numel() else 0
+    return span.max() if span.numel() else torch.zeros(
+        (), dtype=torch.int32, device=kf.device)
+
+
+def max_pair_offset(meas_kf, meas_valid) -> int:
+    """pair_offset_tensor read to the host: what decides whether a
+    block-band assembly holds every pair."""
+    return int(pair_offset_tensor(meas_kf, meas_valid))
 
 
 def _check_modes(axis_name, assembly, solver, sigma_mode, reduce_mode):
@@ -229,29 +406,43 @@ def _linearize(prob: BAProblem, cam, R, t, pts, meas_valid, cam_fixed_m,
     )
 
 
-def _reduced_system(lin, prob: BAProblem, lam, point_block):
-    """S [6K, 6K] and E [K, 6] of the reduced camera system at damping
-    `lam` (Bundle.cc:327-434), with the inverse point blocks Vinv
-    [N, 3, 3] the back-substitution needs."""
-    K = prob.cam_R.shape[0]
+def _damped(lin, prob: BAProblem, lam):
+    """The damped blocks of the inner iteration at `lam`: (Vinv [N, 3, 3],
+    Y = W Vinv [N, O, 6, 3], U* [K, 6, 6], free [K]). V* scales V's
+    diagonal by (1 + lambda); a point with no good measurement has V = 0
+    and gets a zero inverse (Bundle.cc:333-349)."""
     U, V, W = lin["U"], lin["V"], lin["W"]
-    dtype, device = V.dtype, V.device
-    eye3 = torch.eye(3, dtype=dtype, device=device)
-    eye6 = torch.eye(6, dtype=dtype, device=device)
-    # V* inverse: diagonal scaled by (1 + lambda); a point with no good
-    # measurement has V = 0 and gets a zero inverse (Bundle.cc:333-349).
+    eye3 = torch.eye(3, dtype=V.dtype, device=V.device)
+    eye6 = torch.eye(6, dtype=V.dtype, device=V.device)
     Vs = V + lam * V * eye3
     singular = (V[:, 0, 0] * V[:, 1, 1] * V[:, 2, 2] == 0.0)[:, None, None]
     Vinv = torch.where(
         singular, 0.0, wls_ops.inv3x3(torch.where(singular, eye3, Vs)))
-    Y = W @ Vinv[:, None]  # [N, O, 6, 3]
-
     free = prob.cam_valid & ~prob.cam_fixed
-    S_corr, E_corr = _schur_blocks_scatter(prob.meas_kf, Y, W, lin["eps_b"],
-                                           K, point_block)
+    return Vinv, W @ Vinv[:, None], U * (1.0 + lam * eye6), free
+
+
+def _reduced_system(lin, prob: BAProblem, lam, point_block,
+                    assembly: str = "scatter", band: int = 16):
+    """S [6K, 6K] and E [K, 6] of the reduced camera system at damping
+    `lam` (Bundle.cc:327-434), with the inverse point blocks Vinv
+    [N, 3, 3] the back-substitution needs. assembly "band" sums the block
+    band of half-width `band` and spreads it to dense."""
+    K = prob.cam_R.shape[0]
+    dtype, device = lin["V"].dtype, lin["V"].device
+    eye6 = torch.eye(6, dtype=dtype, device=device)
+    Vinv, Y, U_star, free = _damped(lin, prob, lam)
+    if assembly == "band":
+        S_band, E_corr = _schur_blocks_band(prob.meas_kf, Y, lin["W"],
+                                            lin["eps_b"], K, band,
+                                            point_block)
+        S_corr = _band_to_dense(S_band, K, band)
+    else:
+        S_corr, E_corr = _schur_blocks_scatter(prob.meas_kf, Y, lin["W"],
+                                               lin["eps_b"], K, point_block)
     kk = torch.arange(K, device=device)
     S = -S_corr
-    S[kk, :, kk, :] += U * (1.0 + lam * eye6)
+    S[kk, :, kk, :] += U_star
     S = torch.where(free[:, None, None, None] & free[None, None, :, None],
                     S, 0.0)
     # Fixed and invalid cameras: identity rows, zero right-hand side.
@@ -260,6 +451,28 @@ def _reduced_system(lin, prob: BAProblem, lam, point_block):
     Sm = S.reshape(K * 6, K * 6) + 1e-9 * torch.eye(
         K * 6, dtype=dtype, device=device)
     return Sm, E, Vinv, free
+
+
+def _cg_camera_update(lin, prob: BAProblem, lam, point_block, solver: str,
+                      band: int, cg_iters: int, cg_tol: float):
+    """(camera update [K, 6], Vinv, free) of the inner iteration at `lam`
+    by the CG solvers: "pcg" never forms S, "band_pcg" sums its block
+    band first."""
+    K = prob.cam_R.shape[0]
+    Vinv, Y, U_star, free = _damped(lin, prob, lam)
+    if solver == "pcg":
+        E_corr = _e_corr_scatter(prob.meas_kf, Y, lin["eps_b"], K)
+        E = torch.where(free[:, None], lin["eps_a"] - E_corr, 0.0)
+        upd = _pcg_camera_solve(U_star, free, prob.meas_kf, lin["W"], Vinv,
+                                E, cg_iters, cg_tol)
+    else:
+        S_band, E_corr = _schur_blocks_band(prob.meas_kf, Y, lin["W"],
+                                            lin["eps_b"], K, band,
+                                            point_block)
+        E = torch.where(free[:, None], lin["eps_a"] - E_corr, 0.0)
+        upd = _band_pcg_solve(U_star, S_band, free, band, E, cg_iters,
+                              cg_tol)
+    return upd, Vinv, free
 
 
 def _back_substitute(lin, prob: BAProblem, cam, R, t, pts, cam_upd, Vinv,
@@ -299,18 +512,29 @@ def _back_substitute(lin, prob: BAProblem, cam, R, t, pts, cam_upd, Vinv,
 
 
 def _solve_and_step(lin, prob: BAProblem, cam, R, t, pts, lam, point_block,
-                    update_conv):
-    """One inner iteration (Bundle.cc:327-514) at damping `lam`: assemble
-    and solve the reduced system, then _back_substitute. The result also
-    carries the system (S, E)."""
+                    update_conv, assembly: str = "scatter",
+                    solver: str = "chol", band: int = 16, cg_iters: int = 250,
+                    cg_tol: float = 1e-6):
+    """One inner iteration (Bundle.cc:327-514) at damping `lam`: solve the
+    reduced system for the camera update, then _back_substitute. With
+    solver "chol" the result also carries the system (S, E)."""
     K = prob.cam_R.shape[0]
-    Sm, E, Vinv, free = _reduced_system(lin, prob, lam, point_block)
-    # ridge=0: the reduced system already carries it. A factorization that
-    # fails gives a NaN update, hence a NaN objective and a rejected step.
-    cam_upd = wls_ops.solve_spd(Sm, E.reshape(-1), ridge=0.0).reshape(K, 6)
+    extra = {}
+    if solver == "chol":
+        Sm, E, Vinv, free = _reduced_system(lin, prob, lam, point_block,
+                                            assembly, band)
+        # ridge=0: the reduced system already carries it. A factorization
+        # that fails gives a NaN update, hence a NaN objective and a
+        # rejected step.
+        cam_upd = wls_ops.solve_spd(Sm, E.reshape(-1),
+                                    ridge=0.0).reshape(K, 6)
+        extra = dict(S=Sm, E=E)
+    else:
+        cam_upd, Vinv, free = _cg_camera_update(
+            lin, prob, lam, point_block, solver, band, cg_iters, cg_tol)
     step = _back_substitute(lin, prob, cam, R, t, pts, cam_upd, Vinv, free,
                             update_conv)
-    return dict(step, S=Sm, E=E)
+    return dict(step, **extra)
 
 
 def _sanitized(prob: BAProblem):
@@ -344,11 +568,14 @@ def bundle_adjust(
     mgvnMaxIterations); run it again with a small budget to go on.
 
     The arguments are the JAX package's. Ported: assembly "scatter"
-    ("onehot" names the same sums and runs the scatter form), solver
-    "chol", sigma_mode "gather", reduce_mode "psum" without a mesh axis.
-    Every other name the JAX package knows raises NotImplementedError;
-    cg_iters, cg_tol, band_halfwidth and shard_rows belong to those and
-    are not read."""
+    ("onehot" names the same sums and runs the scatter form) and "band"
+    (every co-observing pair within band_halfwidth slots: callers check
+    max_pair_offset, pairs further apart are dropped); solver "chol",
+    "pcg" (the assembly is not read: S is never formed) and "band_pcg"
+    (block band of band_halfwidth), the CG solvers bounded by cg_iters and
+    cg_tol; sigma_mode "gather", reduce_mode "psum" without a mesh axis.
+    The other names the JAX package knows raise NotImplementedError;
+    shard_rows belongs to those and is not read."""
     _check_modes(axis_name, assembly, solver, sigma_mode, reduce_mode)
     dtype, device = prob.points.dtype, prob.points.device
     prob, meas_valid = _sanitized(prob)
@@ -369,7 +596,8 @@ def bundle_adjust(
         # the update converges or the budget ends.
         while True:
             step = _solve_and_step(lin, prob, cam, R, t, pts, lam,
-                                   point_block, update_conv)
+                                   point_block, update_conv, assembly,
+                                   solver, band_halfwidth, cg_iters, cg_tol)
             HOST_READS["bundle_adjust"] += 1
             worse, better, conv = step["flags"].tolist()
             converged_dev = converged_dev | step["flags"][2]

@@ -34,10 +34,12 @@ import torch
 from visualslam_android_tpu_torch import native_runtime
 from visualslam_android_tpu_torch.config import SLAMConfig
 from visualslam_android_tpu_torch.models import bootstrap
+from visualslam_android_tpu_torch.models import bundle as bundle_mod
 from visualslam_android_tpu_torch.models import frame_step as fstep
 from visualslam_android_tpu_torch.models import map_store, relocalizer
 from visualslam_android_tpu_torch.models import tracker as tracker_mod
 from visualslam_android_tpu_torch.ops import camera as cam_ops
+from visualslam_android_tpu_torch.utils import profiling
 from visualslam_android_tpu_torch.utils.tensors import default_device
 
 # Bootstrap phases (TrackForInitialMap states, Tracker.cc:218-261).
@@ -86,10 +88,13 @@ class SLAMSystem:
         # (one per tracked frame), "reloc" (one per relocalization
         # attempt), "pending" (a deferred bundle-adjustment result resolved
         # without a frame to carry it), "bootstrap" (trail counts and the
-        # new map's pose on bootstrap frames). bundle.HOST_READS counts
-        # the bundle adjustment's own.
+        # new map's pose on bootstrap frames), "solver" (the band check of
+        # _solver_choice). bundle.HOST_READS counts the bundle adjustment's
+        # own.
         self.host_reads = {"stats": 0, "reloc": 0, "pending": 0,
-                           "bootstrap": 0}
+                           "bootstrap": 0, "solver": 0}
+        # Wall-clock stage timer, off by default (run_slam --profile).
+        self.timer = profiling.StageTimer(enabled=False)
         self.reset()
 
     def _read(self, x, kind):
@@ -148,6 +153,8 @@ class SLAMSystem:
         self._kf_count_host = 0
         self._newest_kf_host = -1
         self._n_points_host = 0
+        # (keyframe count, (assembly, solver)) of the last band check.
+        self._band_choice = None
 
     def on_touch(self):
         """Touch = PTAM spacebar (jni_part.cpp:49-51)."""
@@ -177,8 +184,11 @@ class SLAMSystem:
     # ---- bootstrap frames ---------------------------------------------
 
     def _bootstrap_frame(self, img, fid) -> FrameResult:
-        frame, sbi_cur = fstep.bootstrap_frontend(img, self.config)
-        self._bootstrap(frame)
+        with self.timer.stage("frontend"):
+            frame, sbi_cur = fstep.bootstrap_frontend(img, self.config)
+            self.timer.sync(frame, sbi_cur)
+        with self.timer.stage("bootstrap"):
+            self._bootstrap(frame)
         self.sbi_last = sbi_cur
         self._prev_frame = frame
         if self.reset_requested:
@@ -209,13 +219,15 @@ class SLAMSystem:
 
         use_prior, forced_coarse, recovered = True, False, False
         if lost:
-            frame, sbi_cur = fstep.bootstrap_frontend(img, cfg)
-            res = relocalizer.attempt_recovery(
-                self.slam_map, sbi_cur.template, self.cam,
-                cfg.mapmaker.reloc_max_score,
-            )
-            got = self._read(torch.cat([res.success.to(torch.float32)[None],
-                                        res.R.reshape(-1), res.t]), "reloc")
+            with self.timer.stage("reloc"):
+                frame, sbi_cur = fstep.bootstrap_frontend(img, cfg)
+                res = relocalizer.attempt_recovery(
+                    self.slam_map, sbi_cur.template, self.cam,
+                    cfg.mapmaker.reloc_max_score,
+                )
+                got = self._read(torch.cat([
+                    res.success.to(torch.float32)[None], res.R.reshape(-1),
+                    res.t]), "reloc")
             if not got[0] > 0.5:
                 # No frame_step carries a deferred bundle-adjustment result
                 # on this path: resolve it now, before the mapping task can
@@ -224,7 +236,9 @@ class SLAMSystem:
                 self._resolve_pending_sync()
                 self.sbi_last = sbi_cur
                 self._prev_frame = frame
-                self._mapmaker_step()
+                with self.timer.stage("mapmaker"):
+                    self._mapmaker_step()
+                    self.timer.sync(self.slam_map)
                 return self._lost_result(fid)
             # Tracker.cc:163-174: adopt the recovered pose, zero the motion
             # model, force the coarse stage.
@@ -247,13 +261,15 @@ class SLAMSystem:
 
         R_before, t_before = self.R, self.t
         pose_before = self._pose_host
-        out = fstep.frame_step(
-            img, self.slam_map, self.cam, self.R, self.t, self.velocity,
-            self._msd, self._depth, self._wiggle_dev, self.sbi_last,
-            self.new_points, self.failure_mask, pending_vec, cfg,
-            use_prior=use_prior, forced_coarse=forced_coarse,
-            generator=self.generator,
-        )
+        with self.timer.stage("frame_step"):
+            out = fstep.frame_step(
+                img, self.slam_map, self.cam, self.R, self.t, self.velocity,
+                self._msd, self._depth, self._wiggle_dev, self.sbi_last,
+                self.new_points, self.failure_mask, pending_vec, cfg,
+                use_prior=use_prior, forced_coarse=forced_coarse,
+                generator=self.generator,
+            )
+            self.timer.sync(out.stats)
         self.slam_map = out.slam_map
         self.R, self.t, self.velocity = out.R, out.t, out.velocity
         self._msd, self._depth = out.msd, out.depth
@@ -263,7 +279,9 @@ class SLAMSystem:
         if recovered:
             self.just_recovered = True  # force coarse next frame too
 
-        self._mapmaker_step()
+        with self.timer.stage("mapmaker"):
+            self._mapmaker_step()
+            self.timer.sync(self.slam_map)
         return self._process_ctx(dict(
             stats=out.stats, frame=out.frame, found=out.found,
             found_pos=out.found_pos, search_level=out.search_level,
@@ -305,7 +323,8 @@ class SLAMSystem:
         cfg = self.config
         tc = cfg.tracker
         S = fstep
-        stats = self._read(ctx["stats"], "stats")
+        with self.timer.stage("stats_pull"):
+            stats = self._read(ctx["stats"], "stats")
         finite = bool(np.isfinite(stats).all())
 
         if finite:
@@ -433,7 +452,8 @@ class SLAMSystem:
         cfg = self.config
         init = bootstrap.init_from_stereo(self._trails, frame_second,
                                           self.cam, cfg,
-                                          generator=self.generator)
+                                          generator=self.generator,
+                                          timer=self.timer)
         if not init.ok:
             # A bundle adjustment that left a non-finite map asks for the
             # full reset, as a deferred one does (MapMaker.cc:906-915).
@@ -556,15 +576,21 @@ class SLAMSystem:
     def _solver_choice(self):
         """(assembly, solver) of bundle adjustment: the scatter Schur
         assembly and a dense Cholesky solve while the keyframe slots stay
-        within dense_solver_max_cams."""
+        within dense_solver_max_cams; above, the block band and band CG when
+        every co-observing pair fits band_halfwidth (odometry maps), else
+        the matrix-free CG. The band check reads the device once; its
+        answer is kept until the keyframe count changes."""
         bc = self.config.bundle
         if self.config.mapmaker.max_keyframes <= bc.dense_solver_max_cams:
             return "scatter", "chol"
-        raise NotImplementedError(
-            "more keyframe slots than dense_solver_max_cams need the band / "
-            "PCG solvers, which are not ported yet (ROADMAP.md queue 1, item "
-            "11: pcg, band, band_pcg)"
-        )
+        if (self._band_choice is None
+                or self._band_choice[0] != self._kf_count_host):
+            offset = int(self._read(bundle_mod.pair_offset_tensor(
+                self.slam_map.meas.kf, self.slam_map.meas.valid), "solver"))
+            choice = (("band", "band_pcg") if offset <= bc.band_halfwidth
+                      else ("scatter", "pcg"))
+            self._band_choice = (self._kf_count_host, choice)
+        return self._band_choice[1]
 
     def _dispatch_ba(self, mode: str, max_iters: int):
         """BundleAdjustRecent ("local") or BundleAdjustAll ("global")

@@ -150,3 +150,27 @@ def largest_radius_in_image(cam: Camera):
     ])
     m = unproject(cam, corners)
     return torch.max(torch.linalg.vector_norm(m, dim=-1))
+
+
+def gl_frustum(cam: Camera, near=0.01, far=100.0):
+    """OpenGL-style 4x4 projection matrix of the camera's linear part (the
+    capability of ATANCamera's MakeUFBLinearFrustumMatrix; the distortion
+    is left out, as the reference's GL path leaves it), on the camera's
+    device."""
+    fx, fy = cam.focal[0], cam.focal[1]
+    cx, cy = cam.center[0], cam.center[1]
+    W, H = cam.size[0], cam.size[1]
+    left = -near * cx / fx
+    right = near * (W - cx) / fx
+    top = -near * cy / fy
+    bottom = near * (H - cy) / fy
+    zero = torch.zeros_like(fx)
+    return torch.stack([
+        torch.stack([2 * near / (right - left), zero,
+                     (right + left) / (right - left), zero]),
+        torch.stack([zero, 2 * near / (bottom - top),
+                     (bottom + top) / (bottom - top), zero]),
+        torch.stack([zero, zero, zero - (far + near) / (far - near),
+                     zero - 2 * far * near / (far - near)]),
+        torch.stack([zero, zero, zero - 1.0, zero]),
+    ])

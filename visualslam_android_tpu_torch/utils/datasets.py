@@ -1,13 +1,21 @@
-"""The synthetic sequence generator: a rendered planar scene seen along a
-smooth camera path, with its ground truth.
+"""Dataset loaders, TUM-RGBD (mono) and KITTI odometry (mono), and the
+synthetic sequence generator used where no dataset is on disk.
 
-Port of ``make_synthetic_sequence`` from the JAX package's
-``utils/datasets.py``. The scene's texture is drawn with numpy from the
-caller's generator in the JAX package's order, so one seed gives the same
-frames in both. The TUM-RGBD and KITTI loaders are not ported.
+Port of the JAX package's ``utils/datasets.py``. Frames come out as f32
+grey images in [0, 255] at the configured size. They are read by the
+repository's C++ runtime (``native_runtime.FramePipeline``: worker threads
+decode and resize ahead of the consumer) where it builds, else by
+``utils/imageio`` with numpy, which gives the same bytes; the JAX package
+falls back to PIL instead, which the card's machine does not have. The
+synthetic scene's texture is drawn with numpy from the caller's generator
+in the JAX package's order, so one seed gives the same frames in both.
 """
 
 from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -15,8 +23,95 @@ import torch
 from visualslam_android_tpu_torch.config import CameraConfig
 from visualslam_android_tpu_torch.ops import camera as cam_ops
 from visualslam_android_tpu_torch.ops import lie
-from visualslam_android_tpu_torch.utils import synthetic
+from visualslam_android_tpu_torch.utils import imageio, synthetic
 from visualslam_android_tpu_torch.utils.tensors import default_device
+
+
+@dataclasses.dataclass
+class Sequence:
+    name: str
+    frames: List[str]                     # image paths
+    timestamps: np.ndarray                # [T]
+    gt_positions: Optional[np.ndarray]    # [T, 3] or None
+    gt_quaternions: Optional[np.ndarray]  # [T, 4] (x, y, z, w) or None
+    size: Tuple[int, int]                 # (width, height)
+
+    def __len__(self):
+        return len(self.frames)
+
+
+def _table(path):
+    """The rows of a whitespace-separated text file, '#' lines skipped."""
+    with open(path) as f:
+        return [line.split() for line in f
+                if line.strip() and not line.lstrip().startswith("#")]
+
+
+def load_tum(root: str, size=(640, 480), max_frames=None) -> Sequence:
+    """TUM-RGBD mono: rgb.txt, and groundtruth.txt where present,
+    associated to each frame by nearest timestamp (the TUM protocol)."""
+    entries = [(float(row[0]), os.path.join(root, row[1]))
+               for row in _table(os.path.join(root, "rgb.txt"))]
+    if max_frames:
+        entries = entries[:max_frames]
+    ts = np.asarray([e[0] for e in entries])
+    gt_pos = gt_quat = None
+    gt_file = os.path.join(root, "groundtruth.txt")
+    if os.path.exists(gt_file):
+        raw = np.asarray([[float(v) for v in row]
+                          for row in _table(gt_file)])
+        # The first ground truth at or after each frame, or its left
+        # neighbour where that is as close or closer.
+        hi = np.clip(np.searchsorted(raw[:, 0], ts), 0, len(raw) - 1)
+        lo = np.clip(hi - 1, 0, len(raw) - 1)
+        idx = np.where(np.abs(raw[lo, 0] - ts) <= np.abs(raw[hi, 0] - ts),
+                       lo, hi)
+        gt_pos, gt_quat = raw[idx, 1:4], raw[idx, 4:8]
+    return Sequence(name=os.path.basename(root.rstrip("/")),
+                    frames=[e[1] for e in entries], timestamps=ts,
+                    gt_positions=gt_pos, gt_quaternions=gt_quat, size=size)
+
+
+def load_kitti(root: str, sequence="00", size=(620, 188),
+               max_frames=None) -> Sequence:
+    """KITTI odometry mono (image_0), poses from poses/<sequence>.txt."""
+    img_dir = os.path.join(root, "sequences", sequence, "image_0")
+    frames = sorted(os.path.join(img_dir, f) for f in os.listdir(img_dir)
+                    if f.endswith(".png"))
+    if max_frames:
+        frames = frames[:max_frames]
+    gt_pos = None
+    pose_file = os.path.join(root, "poses", f"{sequence}.txt")
+    if os.path.exists(pose_file):
+        gt_pos = np.loadtxt(pose_file).reshape(-1, 3, 4)[:len(frames), :, 3]
+    return Sequence(name=f"kitti-{sequence}", frames=frames,
+                    timestamps=np.arange(len(frames), dtype=np.float64) * 0.1,
+                    gt_positions=gt_pos, gt_quaternions=None, size=size)
+
+
+def iter_images(seq: Sequence, use_native: bool = True,
+                info: Optional[dict] = None) -> Iterator[np.ndarray]:
+    """f32 grey frames [height, width] at seq.size: through the C++
+    runtime's FramePipeline where use_native and the library builds, else
+    through utils/imageio (the same bytes). `info`, where given, gets
+    "reader": "native" or "numpy" for the reader that ran, and
+    "native_error" where the native one was asked for and failed."""
+    from visualslam_android_tpu_torch import native_runtime
+
+    info = {} if info is None else info
+    w, h = seq.size
+    if use_native:
+        try:
+            with native_runtime.FramePipeline(seq.frames, w, h) as pipe:
+                info["reader"] = "native"
+                for _, img in pipe:
+                    yield img.astype(np.float32)
+            return
+        except native_runtime.NativeRuntimeUnavailable as e:
+            info["native_error"] = str(e)
+    info["reader"] = "numpy"
+    for path in seq.frames:
+        yield imageio.decode_image(path, w, h).astype(np.float32)
 
 
 def make_synthetic_sequence(rng, n_frames=60, size=(320, 240), depth=4.0,
