@@ -11,8 +11,8 @@ a sideways camera motion (trails, homography, triangulation, bundle
 adjustment, epipolar growth, plane alignment) and then tracks on it;
 bundle adjustment at the map's full capacities and at 128 keyframe slots
 through every solver; full SLAM through the facade at the default and at
-the large-map configuration; and the command line on a TUM-format
-sequence.
+the large-map configuration; the command line on a TUM-format
+sequence; and four camera streams tracked together in one batched program.
 
 1. device: requires CUDA; prints the card's name and power limit;
 2. build: compiles the CUDA kernels (csrc/fast.cu) with nvcc and prints
@@ -125,12 +125,34 @@ sequence.
    track, at least 2 keyframes, the ATE must stay under 2% of the
    trajectory's span (printed beside the JAX package's figure in
    artifacts/ATE_r5.json, reported and not claimed), and the saved map
-   must load back equal to the live one.
+   must load back equal to the live one;
+13. multi-stream tracking (parallel/replicated_tracking.stream_step), run
+   right after phase 6 on phase 4's map and frames as bench.py's
+   multistream_4x_aggregate_fps runs it: 4 streams, stream s at step k on
+   frame (k + 7 s) % 100, all starting at frame 0's pose with the SBI
+   primed from frame 0, 3 warm-up steps and the timed pass over the 100
+   frames, with fixed draws per stream. First fast_detect_levels with the
+   stream in its grid, on the four levels of 4 different frames: masks
+   bit-equal to the plain version and to one single-frame launch per
+   stream, scores within 1e-3, timed (CUDA-graph replay, median of 50)
+   beside its bound and the four single-frame launches. Then every stream
+   must find more than 50 points and not be BAD at the last step, and end
+   within phase 4's pose bound of the rendered pose of the frame it saw;
+   the path must launch fast_detect_levels once per step (not once per
+   stream); each stream over the first 5 steps must equal stream_step at
+   S = 1 on its frames and draws (n_found and quality equal, R and t within
+   1e-4); the first 3 steps on the CPU through the plain path must agree
+   with the card (poses within 1e-4, n_found within 2%, quality equal); and
+   a step must make no synchronising call. Printed: each stream's minimum
+   found and BAD steps, the aggregate frames/s beside phase 6's one-stream
+   figure, launches per step and the device's busy share under
+   torch.profiler at S = 4 and S = 1, and the count of vmap fallbacks.
 
 Any failed check raises and the script exits non-zero. The last two lines
 of standard output are a JSON object describing the kernels (`launches`
-is the sum over phases 4, 7, 9, 10, 11 and 12, `launches_by_path` gives
-each) and
+is the sum over phases 4, 7, 9, 10, 11, 12 and 13, `launches_by_path` gives
+each; the row fast_detect_levels_streams is the same kernel's
+stream-gridded launch, counted on the streams path) and
 the ``{"ok": true, "device": ...}`` line. It imports no jax.
 """
 
@@ -232,6 +254,16 @@ TUM_JAX_ATE_M, TUM_JAX_ATE_PCT = 0.00909, 1.09
 # After phase 10's checked run, its facade goes on for PROFILE_FRAMES frames
 # with nothing wrapped, under torch.profiler: the device's busy share.
 PROFILE_FRAMES = 10
+# Phase 13: multi-stream tracking as bench.py's multistream_4x_aggregate_fps
+# runs it: S streams, stream s at step k on frame (k + 7 s) % 100, three
+# warm-up steps on frames 0-2, then the timed pass over the 100 frames.
+STREAMS = 4
+STREAM_OFFSET = 7
+STREAM_WARMUP = 3
+STREAM_SINGLE_STEPS = 5     # streams against S = 1 stream_step
+STREAM_CPU_STEPS = 3        # card against the CPU
+STREAM_PROFILE_STEPS = 5
+STREAM_SINGLE_ATOL = 1e-4   # tests/test_replicated_tracking.py's atol
 # Published peaks of one H100 SXM: HBM3 rate and f32 rate outside the tensor
 # cores.
 H100_BYTES_PER_S = 3.35e12
@@ -1835,32 +1867,323 @@ def phase_full_slam(device, card, fast, slam, fstep, relocalizer,
     return launches, rec
 
 
+def device_profile(run, device):
+    """run() under torch.profiler with the CUDA activity alone (the CUDA
+    runtime's calls and the device's kernels and copies): (its result,
+    wall s, device-busy s, kernel launches). Busy time is the union of
+    the device's activity intervals; launches count cudaLaunchKernel and
+    cudaLaunchKernelExC calls. It reads the profiler's raw events:
+    key_averages() takes tens of seconds for ~50k kernels, and with the
+    CPU activity on it counts each kernel's time twice (under the op that
+    launched it and under the kernel)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    sync(device)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = run()
+        sync(device)
+        window = time.perf_counter() - t0
+    events = prof.profiler.kineto_results.events()
+    spans = sorted((e.start_ns(), e.start_ns() + e.duration_ns())
+                   for e in events
+                   if e.device_type() == torch.autograd.DeviceType.CUDA)
+    busy_ns, end = 0, 0
+    for a, b in spans:
+        busy_ns += max(0, b - max(a, end))
+        end = max(end, b)
+    launches = sum(e.name() in ("cudaLaunchKernel", "cudaLaunchKernelExC")
+                   for e in events)
+    return out, window, busy_ns / 1e9, launches
+
+
 def profile_window(sys_, images, device, card):
     """The facade goes on along the path over `images`, nothing wrapped,
     under torch.profiler: wall and device time per frame and the device's
     busy share (the frames after the checked run; their launches are not
     counted)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    sync(device)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        results = [sys_.track_frame(img) for img in images]
-        sync(device)
-        window = time.perf_counter() - t0
-    averages = prof.key_averages()
-    device_us = sum(getattr(e, "self_device_time_total", 0.0)
-                    for e in averages)
-    launches = sum(e.count for e in averages if e.key == "cudaLaunchKernel")
+    results, window, busy_s, launches = device_profile(
+        lambda: [sys_.track_frame(img) for img in images], device)
     n = len(images)
-    busy = (f"{100 * device_us / 1e6 / window:.2f}% busy" if device_us > 0
+    busy = (f"{100 * busy_s / window:.2f}% busy" if busy_s > 0
             else "device time not measured (the profiler saw none)")
     print(f"full SLAM, {n} more frames under torch.profiler "
           f"({sum(r.quality == 2 for r in results)} GOOD): "
           f"{1e3 * window / n:.3f} ms per frame, device time "
-          f"{device_us / 1e3 / n:.3f} ms per frame, {busy}; "
-          f"{launches / n:.1f} cudaLaunchKernel calls per frame  [{card}]")
+          f"{1e3 * busy_s / n:.3f} ms per frame, {busy}; "
+          f"{launches / n:.1f} kernel launches per frame  [{card}]")
+
+
+def stream_frames(frames, k):
+    """The S frames the streams see at step k: stream s at frame
+    (k + STREAM_OFFSET s) mod the path's length (bench.py:163-166)."""
+    return torch.stack([frames[(k + STREAM_OFFSET * s) % len(frames)]
+                        for s in range(STREAMS)])
+
+
+def phase_stream_kernel(frames, config, fast, image):
+    """The stream-gridded fast_detect_levels on the four levels of
+    STREAMS different frames: masks bit-equal to the plain version and to
+    one single-frame launch per stream, scores within SCORE_ATOL of the
+    plain version and bit-equal to the single-frame launches; times."""
+    tc = config.tracker
+    levels = [lvl.contiguous() for lvl in
+              image.make_pyramid(stream_frames(frames, 0), tc.n_levels)]
+    thr = tc.fast_thresholds
+    max_err = 0.0
+    for arc in (10, 9):
+        masks, scores = fast.detect_levels_streams(levels, thr, arc)
+        p_masks, p_scores = fast.detect_levels_streams_reference(levels, thr,
+                                                                 arc)
+        torch.cuda.synchronize()
+        for lvl in range(len(levels)):
+            check(torch.equal(masks[lvl], p_masks[lvl]),
+                  f"stream-gridded FAST mask differs from the plain version "
+                  f"at level {lvl} arc={arc}: "
+                  f"{int((masks[lvl] != p_masks[lvl]).sum())} pixels")
+            err = float(torch.max(torch.abs(scores[lvl] - p_scores[lvl])))
+            check(err <= SCORE_ATOL,
+                  f"stream-gridded FAST score differs by {err} at level {lvl}")
+            max_err = max(max_err, err)
+        for s in range(STREAMS):
+            m1, s1 = fast.detect_levels([lv[s] for lv in levels], thr, arc)
+            for lvl in range(len(levels)):
+                check(torch.equal(m1[lvl], masks[lvl][s])
+                      and torch.equal(s1[lvl], scores[lvl][s]),
+                      f"stream {s} of the stream-gridded FAST differs from "
+                      f"its single-frame launch at level {lvl} arc={arc}")
+    out = {"max_abs_err": max_err,
+           "n_pixels": sum(lv.numel() for lv in levels),
+           "corners": int(sum(int(m.sum()) for m in masks))}
+    out["eager_ms"], out["ms"] = cuda_ms(
+        lambda: fast.detect_levels_streams(levels, thr))
+    out["single_eager_ms"], out["single_ms"] = cuda_ms(
+        lambda: [fast.detect_levels([lv[s] for lv in levels], thr)
+                 for s in range(STREAMS)])
+    out["plain_eager_ms"], out["plain_ms"] = cuda_ms(
+        lambda: fast.detect_levels_streams_reference(levels, thr))
+    return out
+
+
+def stream_start(rt, sbi_ops, kf_mod, frames, R0, t0, config, device):
+    """bench.py's start of the multi-stream run: every stream at (R0, t0),
+    zero velocity, the SBI primed from frame 0."""
+    tc = config.tracker
+    sbi0 = sbi_ops.make_sbi(kf_mod.make_frame(frames[0], config).pyramid[-1],
+                            tc.sbi_blur)
+    st = rt.init_streams(STREAMS, R0, t0, config, device=device)
+    return st.replace(
+        sbi_last=sbi_ops.SBI(
+            template=sbi0.template.expand(STREAMS, -1, -1).clone(),
+            jacs=sbi0.jacs.expand(STREAMS, -1, -1, -1).clone()),
+        has_sbi=torch.ones_like(st.has_sbi))
+
+
+def count_fallbacks(fn):
+    """Runs fn with functorch's fallback warning on: the number of ops that
+    fell back to a per-example loop under vmap (their names, deduplicated)."""
+    import warnings
+
+    torch._C._functorch._set_vmap_fallback_warning_enabled(True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch._C._functorch._set_vmap_fallback_warning_enabled(False)
+    names = [str(w.message) for w in caught
+             if "batching rule" in str(w.message)]
+    return len(names), sorted(set(n.split(" for ")[-1][:60] for n in names))
+
+
+def profile_steps(step, n, device):
+    """n calls of step() under torch.profiler (device_profile): (wall ms
+    per call, device-busy ms per call, kernel launches per call)."""
+    _, window, busy_s, launches = device_profile(
+        lambda: [step() for _ in range(n)], device)
+    return 1e3 * window / n, 1e3 * busy_s / n, launches / n
+
+
+def phase_streams(device, card, fast, rt, sbi_ops, kf_mod, tracker, image,
+                  sm, cam, config, frames, poses, one_stream_fps):
+    """Phase 13: multi-stream tracking (parallel/replicated_tracking) at
+    S = STREAMS on phase 4's map and frames. Returns (the FAST launches of
+    the streams path, the kernel's record)."""
+    tc = config.tracker
+    R0, t0 = poses[0]
+    t_phase = time.perf_counter()
+
+    # The kernel against its plain version and single-frame launches.
+    parts = {}
+    t_part = time.perf_counter()
+
+    def part(name):
+        nonlocal t_part
+        now = time.perf_counter()
+        parts[name] = now - t_part
+        t_part = now
+
+    kern = phase_stream_kernel(frames, config, fast, image)
+    kern["bound_ms"], kern["bound_by"] = detect_bound_ms(kern["n_pixels"])
+    part("kernel")
+    print(f"streams: fast_detect_levels with the stream in its grid, "
+          f"{STREAMS} frames x 4 levels in one launch: device kernel "
+          f"{kern['ms']:.5f} ms, {STREAMS} single-frame launches "
+          f"{kern['single_ms']:.5f} ms, plain {kern['plain_ms']:.5f} ms; "
+          f"eager call kernel {kern['eager_ms']:.5f} ms, single-frame "
+          f"launches {kern['single_eager_ms']:.5f} ms, plain "
+          f"{kern['plain_eager_ms']:.5f} ms; bound {kern['bound_ms']:.5f} ms "
+          f"by {kern['bound_by']} ({kern['n_pixels']} pixels, 9 B each); "
+          f"masks bit-equal to the plain version and to the single-frame "
+          f"launches, max |score - plain| = {kern['max_abs_err']}; "
+          f"{kern['corners']} corners  [{card}]")
+
+    # The main path: the S = STREAMS chain, warm-up then the timed pass.
+    uniforms = torch.rand(STREAMS, 2, tc.max_map_points,
+                          generator=torch.Generator().manual_seed(1)
+                          ).to(device)
+    sframes = [stream_frames(frames, k) for k in range(len(frames))]
+    state = stream_start(rt, sbi_ops, kf_mod, frames, R0, t0, config, device)
+    start = state
+    sync(device)
+    for key in fast.LAUNCHES:
+        fast.LAUNCHES[key] = 0
+    record = []
+    for k in range(STREAM_WARMUP):
+        state, out = rt.stream_step(sframes[k], state, sm, cam, uniforms,
+                                    config)
+        record.append(out)
+    sync(device)
+    t_wall = time.perf_counter()
+    for k in range(len(frames)):
+        state, out = rt.stream_step(sframes[k], state, sm, cam, uniforms,
+                                    config)
+        record.append(out)
+    sync(device)
+    wall = time.perf_counter() - t_wall
+    launches = dict(fast.LAUNCHES)
+    part("chain")
+    n_steps = STREAM_WARMUP + len(frames)
+    check(launches == {"fast_detect": 0, "fast_detect_levels": n_steps,
+                       "fast_nonmax_levels": 0},
+          f"FAST launches over {n_steps} steps of {STREAMS} streams: "
+          f"{launches}, expected one fast_detect_levels per step")
+    agg_fps = STREAMS * len(frames) / wall
+
+    found = torch.stack([o.n_found for o in record]).cpu().numpy()
+    quality = torch.stack([o.quality for o in record]).cpu().numpy()
+    last = record[-1]
+    k_last = len(frames) - 1
+    for s in range(STREAMS):
+        f = (k_last + STREAM_OFFSET * s) % len(frames)
+        R_true, t_true = poses[f]
+        t_err = float(torch.linalg.vector_norm(last.t[s] - t_true))
+        r_err = rot_angle(last.R[s], R_true)
+        bad_steps = [int(k) for k in np.nonzero(
+            quality[:, s] == tracker.QUALITY_BAD)[0]]
+        print(f"streams: stream {s} found min {found[:, s].min()} over the "
+              f"{n_steps} steps (at step {int(found[:, s].argmin())}), "
+              f"last {found[-1, s]} on frame {f}, BAD at steps {bad_steps}; "
+              f"last pose error {t_err:.6f} m, {r_err:.6f} rad")
+        check(found[-1, s] > 50,
+              f"stream {s} found {found[-1, s]} <= 50 points at the last step")
+        check(quality[-1, s] != tracker.QUALITY_BAD,
+              f"stream {s} tracked BAD at the last step")
+        check(t_err < MAX_T_ERR and r_err < MAX_R_ERR,
+              f"stream {s}: last pose error t {t_err} m, rot {r_err} rad")
+
+    # Streams against one stream: stream s alone through stream_step at
+    # S = 1 over the first steps, on the same frames and draws.
+    def frames_at(i):
+        return sframes[i if i < STREAM_WARMUP else i - STREAM_WARMUP]
+
+    worst_single = 0.0
+    for s in range(STREAMS):
+        st1 = start._map(lambda x, s=s: x[s:s + 1])
+        for i in range(STREAM_SINGLE_STEPS):
+            st1, o1 = rt.stream_step(frames_at(i)[s:s + 1], st1, sm, cam,
+                                     uniforms[s:s + 1], config)
+            ob = record[i]
+            check(int(o1.n_found[0]) == int(ob.n_found[s])
+                  and int(o1.quality[0]) == int(ob.quality[s]),
+                  f"stream {s} step {i}: S = 1 gives n_found "
+                  f"{int(o1.n_found[0])} quality {int(o1.quality[0])}, "
+                  f"S = {STREAMS} {int(ob.n_found[s])} {int(ob.quality[s])}")
+            worst_single = max(
+                worst_single,
+                float(torch.max(torch.abs(o1.R[0] - ob.R[s]))),
+                float(torch.max(torch.abs(o1.t[0] - ob.t[s]))))
+    check(worst_single <= STREAM_SINGLE_ATOL,
+          f"streams and S = 1 poses differ by {worst_single}")
+    part("single")
+
+    # Card against CPU: the first steps through the plain path.
+    cpu = torch.device("cpu")
+    t_cpu = time.perf_counter()
+    st_c, sm_c, cam_c, u_c = start.to(cpu), sm.to(cpu), cam.to(cpu), \
+        uniforms.cpu()
+    worst_pose, worst_found = 0.0, 0.0
+    for i in range(STREAM_CPU_STEPS):
+        st_c, oc = rt.stream_step(frames_at(i).cpu(), st_c, sm_c, cam_c,
+                                  u_c, config)
+        og = record[i]
+        worst_pose = max(worst_pose,
+                         float(torch.max(torch.abs(og.R.cpu() - oc.R))),
+                         float(torch.max(torch.abs(og.t.cpu() - oc.t))))
+        nf_g, nf_c = og.n_found.cpu(), oc.n_found
+        worst_found = max(worst_found, float(torch.max(
+            torch.abs(nf_g - nf_c) / torch.clamp(torch.maximum(nf_g, nf_c),
+                                                 min=1))))
+        check(torch.equal(og.quality.cpu(), oc.quality),
+              f"card and CPU quality differ at step {i}: "
+              f"{og.quality.tolist()} vs {oc.quality.tolist()}")
+    print(f"streams: card vs CPU over {STREAM_CPU_STEPS} steps of "
+          f"{STREAMS} streams: max pose diff {worst_pose:.3e}, max relative "
+          f"n_found diff {worst_found:.4f} (CPU "
+          f"{time.perf_counter() - t_cpu:.1f} s); streams vs S = 1 over "
+          f"{STREAM_SINGLE_STEPS} steps: max pose diff {worst_single:.3e}, "
+          f"n_found and quality equal")
+    check(worst_pose <= POSE_ATOL, f"card and CPU poses differ: {worst_pose}")
+    check(worst_found <= 1.0 - FOUND_AGREE,
+          f"card and CPU n_found differ by {worst_found} (relative)")
+    part("cpu")
+
+    # Launches, busy share and fallbacks (outside the counted run).
+    prof = {}
+    for S in (STREAMS, 1):
+        st_p = state._map(lambda x, S=S: x[:S])
+        imgs_p, u_p = sframes[0][:S], uniforms[:S]
+        prof[S] = profile_steps(
+            lambda: rt.stream_step(imgs_p, st_p, sm, cam, u_p, config),
+            STREAM_PROFILE_STEPS, device)
+    part("profile")
+    n_fallback, fallback_ops = count_fallbacks(
+        lambda: rt.stream_step(sframes[0], state, sm, cam, uniforms,
+                               config))
+    with flagged_syncs(device) as syncs:
+        rt.stream_step(sframes[0], state, sm, cam, uniforms, config)
+        sync(device)
+    part("fallbacks_syncs")
+    for S in (STREAMS, 1):
+        wall_ms, dev_ms, n_launch = prof[S]
+        busy = (f"{100 * dev_ms / wall_ms:.2f}% busy" if dev_ms > 0
+                else "device time not measured (the profiler saw none)")
+        print(f"streams: S = {S}, {STREAM_PROFILE_STEPS} steps under "
+              f"torch.profiler: {wall_ms:.3f} ms per step, device "
+              f"{dev_ms:.3f} ms per step, {busy}, {n_launch:.1f} "
+              f"kernel launches per step  [{card}]")
+    print(f"streams: aggregate {agg_fps:.3f} frames/s ({STREAMS} streams x "
+          f"{len(frames)} frames in {wall:.3f} s, warm pass) against phase "
+          f"6's one-stream frame_step chain {one_stream_fps:.3f} frames/s; "
+          f"launches per step {prof[STREAMS][2]:.1f} at S = {STREAMS} "
+          f"against {prof[1][2]:.1f} at S = 1; vmap fallbacks {n_fallback} "
+          f"{fallback_ops}; synchronising calls in one step {len(syncs)} "
+          f"{sorted(set(syncs))[:8]}; phase {time.perf_counter() - t_phase:.1f}"
+          f" s ({', '.join(f'{k} {v:.1f}' for k, v in parts.items())})"
+          f"  [{card}]")
+    check(len(syncs) == 0,
+          f"stream_step synchronised with the host: {sorted(set(syncs))}")
+    return launches, kern
 
 
 def replay_keyframe(args, device, fstep, slam, bundle):
@@ -1981,6 +2304,7 @@ def main():
     from visualslam_android_tpu_torch.ops import cuda_build, fast, image, lie
     from visualslam_android_tpu_torch.ops import mestimator, wls
     from visualslam_android_tpu_torch.ops import sbi as sbi_ops
+    from visualslam_android_tpu_torch.parallel import replicated_tracking
     from visualslam_android_tpu_torch import run_slam
     from visualslam_android_tpu_torch.utils import ate, datasets, fixtures
     from visualslam_android_tpu_torch.utils import imageio, serialization
@@ -2132,7 +2456,13 @@ def main():
           f"{statistics.median(fps):.3f}, {frame_ms:.3f} ms/frame)"
           f"; make_frame {front_ms:.4f} ms/frame, rest "
           f"{frame_ms - front_ms:.3f} ms/frame  [{card}]")
-    del frames, outs, state0, sm
+    del outs, state0
+
+    # ---- 13. multi-stream tracking on phase 4's map and frames ----
+    stream_launches, skern = phase_streams(
+        device, card, fast, replicated_tracking, sbi_ops, kf_mod, tracker,
+        image, sm, cam, config, frames, poses, statistics.median(fps))
+    del frames, sm
 
     # ---- 7. the stereo bootstrap, then tracking on its map ----
     (b_config, b_cam, b_frames, trails, second, init, boot_launches,
@@ -2179,19 +2509,16 @@ def main():
     source = "visualslam_android_tpu_torch/csrc/fast.cu"
     replaces = "visualslam_android_tpu/ops/fast_pallas.py:50"
 
-    def row(name, **measured):
+    by_path = {"chain": chain_launches, "bootstrap": boot_launches,
+               "ba_full_size": ba_launches, "slam": slam_launches,
+               "large_map": large_launches, "run_slam": cli_launches,
+               "streams": stream_launches}
+
+    def row(name, paths=tuple(by_path), counter=None, **measured):
+        counts = {p: by_path[p][counter or name] for p in paths}
         return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces,
-                "launches": (chain_launches[name] + boot_launches[name]
-                             + ba_launches[name] + slam_launches[name]
-                             + large_launches[name] + cli_launches[name]),
-                "launches_by_path": {"chain": chain_launches[name],
-                                     "bootstrap": boot_launches[name],
-                                     "ba_full_size": ba_launches[name],
-                                     "slam": slam_launches[name],
-                                     "large_map": large_launches[name],
-                                     "run_slam": cli_launches[name]},
-                "library_ms": None, **measured}
+                "replaces": replaces, "launches": sum(counts.values()),
+                "launches_by_path": counts, "library_ms": None, **measured}
 
     print(json.dumps({"kernels": [
         row("fast_detect", max_abs_err=max_err, ms=one_frame_ms,
@@ -2206,6 +2533,17 @@ def main():
             differ_from_unfused=nm["differ_from_unfused"],
             near_tie_pixels=nm["near_tie_pixels"], ms=nm["ms"],
             plain_ms=nm["plain_ms"], bound_ms=nm_bound, bound_by=nm_by),
+        row("fast_detect_levels_streams", paths=("streams",),
+            counter="fast_detect_levels", max_abs_err=skern["max_abs_err"],
+            ms=skern["ms"], plain_ms=skern["plain_ms"],
+            bound_ms=skern["bound_ms"], bound_by=skern["bound_by"],
+            single_frame_launches_ms=skern["single_ms"],
+            replaces_route="visualslam_android_tpu/ops/fast_pallas.py:173 "
+                           "(_detect_vmappable's custom_vmap rule)",
+            note=f"fast_levels_kernel with the stream in its grid: "
+                 f"{STREAMS} frames x 4 levels in one launch "
+                 f"(ops/fast.detect_levels_streams, make_frames); its "
+                 f"launches are counted under fast_detect_levels"),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -294,6 +294,7 @@ def test_constructors_build_on_the_card_unless_told():
     import inspect
 
     from visualslam_android_tpu_torch.models import map_store as tms
+    from visualslam_android_tpu_torch.parallel import replicated_tracking
     from visualslam_android_tpu_torch.utils import convert
     from visualslam_android_tpu_torch.utils import fixtures as tfix
     from visualslam_android_tpu_torch.utils import synthetic as tsyn
@@ -311,12 +312,16 @@ def test_constructors_build_on_the_card_unless_told():
         lambda **kw: convert.camera_from_numpy(
             tcam.make_camera(cfg.camera.params(), 320, 240, device="cpu"),
             **kw),
+        lambda **kw: replicated_tracking.init_streams(
+            2, np.eye(3), np.zeros(3), cfg, **kw),
+        lambda **kw: tlie.se3_identity((2,), **kw),
     ]
     functions = [tms.empty_map, tcam.make_camera, timg.patch_grid,
                  tsyn.look_at_pose, tsyn.make_planar_scene,
-                 tfix.build_fixed_map] + [
+                 tfix.build_fixed_map, replicated_tracking.init_streams,
+                 tlie.se3_identity] + [
         getattr(convert, n) for n in dir(convert) if n.endswith("_from_numpy")]
-    assert len(functions) == 6 + 10
+    assert len(functions) == 8 + 11
     for fn in functions:
         assert inspect.signature(fn).parameters["device"].default is None, fn
     if torch.cuda.is_available():

@@ -31,13 +31,21 @@
 //
 // What the design does about it:
 //
-//   * fast_levels_kernel, one launch for up to 4 levels. The level
-//     descriptors travel by value in the kernel's parameters; the grid is
-//     one flat list of 32x32-pixel tiles and a block finds its level from
-//     the prefix table of tile counts. At 800x480 that is 515 blocks of 256
-//     threads, all resident at once on 132 SMs (<= 64 registers). Narrow
-//     tiles waste few lanes on the ragged right edge (800, 400, 200 and 100
-//     columns: 1.5% of the lanes idle; 13% with 128-wide tiles).
+//   * fast_levels_kernel, one launch for up to 4 levels of up to 65535
+//     frames. The level descriptors travel by value in the kernel's
+//     parameters; the grid's x axis is one flat list of 32x32-pixel tiles
+//     and a block finds its level from the prefix table of tile counts; the
+//     grid's y axis is the frame (the stream, when S camera streams are
+//     tracked together): frame s of a level starts s * stride elements
+//     after frame 0, in the image, the mask and the score alike. At 800x480
+//     that is 515 blocks of 256 threads per frame: one frame's blocks are
+//     all resident at once on 132 SMs (<= 64 registers, 4 blocks an SM),
+//     four frames' (2060 blocks) make four such waves in one launch, which
+//     is what first gives the kernel more work than its launch latency (the
+//     JAX package runs a batch through the Pallas kernel's vmap rule, a
+//     sequential lax.map of one-frame calls).
+//     Narrow tiles waste few lanes on the ragged right edge (800, 400, 200
+//     and 100 columns: 1.5% of the lanes idle; 13% with 128-wide tiles).
 //   * Each thread owns 4 consecutive x pixels of one row: one float4 score
 //     store and one uchar4 mask store, and float4 global loads for every
 //     4-pixel group of the tile that lies inside the image (clamped scalar
@@ -124,6 +132,7 @@ struct DetectLevel {
   int tiles_x;
   int first_block;  // prefix sum of tile counts
   int vec;          // 1: W % 4 == 0 and the pointers aligned for vectors
+  long long stride; // elements from one frame of the level to the next
 };
 
 struct DetectParams {
@@ -190,7 +199,13 @@ fast_levels_kernel(const DetectParams p, const int arc_length) {
   for (int i = 1; i < kMaxLevels; ++i) {
     if (i < p.n && static_cast<int>(blockIdx.x) >= p.lv[i].first_block) li = i;
   }
-  const DetectLevel L = p.lv[li];
+  DetectLevel L = p.lv[li];
+  // The block's frame: its level's image, mask and score start `stride`
+  // elements further on per frame.
+  const long long frame = static_cast<long long>(blockIdx.y) * L.stride;
+  L.img += frame;
+  L.mask += frame;
+  L.score += frame;
   const int t = static_cast<int>(blockIdx.x) - L.first_block;
   const int x0 = (t % L.tiles_x) * kTileW;
   const int y0 = (t / L.tiles_x) * kTileH;
@@ -431,11 +446,13 @@ inline bool aligned(const void* ptr, size_t bytes) {
 // One level as the Python wrapper passes it (ctypes.Structure of the same
 // layout in ops/fast.py).
 struct FastDetectArg {
-  const float* img;   // f32 [H, W] contiguous on the device
-  uint8_t* mask;      // bool (one byte) [H, W]
-  float* score;       // f32 [H, W]
+  const float* img;   // f32 [S, H, W] (frames `stride` elements apart)
+  uint8_t* mask;      // bool (one byte), the same layout
+  float* score;       // f32, the same layout
   int H, W;
   float threshold;
+  long long stride;   // elements between frames, >= H * W; H * W when the
+                      // S frames of the level are one contiguous tensor
 };
 
 struct FastNonmaxArg {
@@ -445,17 +462,24 @@ struct FastNonmaxArg {
   int H, W;
 };
 
-// Detects corners on `n` (1..4) levels in one launch on `stream`. Returns
-// the cudaError_t of the launch (0 on success); never synchronizes.
+// Detects corners on `n` (1..4) levels of `n_frames` (1..65535) frames in
+// one launch on `stream`. Returns the cudaError_t of the launch (0 on
+// success); never synchronizes.
 extern "C" int fast_detect_levels(const FastDetectArg* args, int n,
-                                  int arc_length, cudaStream_t stream) {
-  if (n < 1 || n > kMaxLevels) return static_cast<int>(cudaErrorInvalidValue);
+                                  int n_frames, int arc_length,
+                                  cudaStream_t stream) {
+  if (n < 1 || n > kMaxLevels || n_frames < 1 || n_frames > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   DetectParams p;
   p.n = n;
   int blocks = 0;
   for (int i = 0; i < n; ++i) {
     const FastDetectArg& a = args[i];
-    if (a.H < 1 || a.W < 1) return static_cast<int>(cudaErrorInvalidValue);
+    if (a.H < 1 || a.W < 1 ||
+        (n_frames > 1 && a.stride < static_cast<long long>(a.H) * a.W)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
     DetectLevel& L = p.lv[i];
     L.img = a.img;
     L.mask = a.mask;
@@ -465,13 +489,17 @@ extern "C" int fast_detect_levels(const FastDetectArg* args, int n,
     L.threshold = a.threshold;
     L.tiles_x = (a.W + kTileW - 1) / kTileW;
     L.first_block = blocks;
-    L.vec = (a.W % 4 == 0 && aligned(a.img, 16) && aligned(a.score, 16) &&
-             aligned(a.mask, 4)) ? 1 : 0;
+    L.stride = n_frames > 1 ? a.stride : 0;
+    // Every frame's pointers keep the alignment when the stride is a
+    // multiple of 4 elements.
+    L.vec = (a.W % 4 == 0 && L.stride % 4 == 0 && aligned(a.img, 16) &&
+             aligned(a.score, 16) && aligned(a.mask, 4)) ? 1 : 0;
     blocks += L.tiles_x * ((a.H + kTileH - 1) / kTileH);
   }
   for (int i = n; i < kMaxLevels; ++i) p.lv[i] = p.lv[0];
   const dim3 block(kThreadsX, kTileH);
-  fast_levels_kernel<<<blocks, block, 0, stream>>>(p, arc_length);
+  const dim3 grid(blocks, n_frames);
+  fast_levels_kernel<<<grid, block, 0, stream>>>(p, arc_length);
   return static_cast<int>(cudaGetLastError());
 }
 

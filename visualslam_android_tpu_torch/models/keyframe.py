@@ -36,6 +36,18 @@ def make_frame(img, config: SLAMConfig) -> FrameData:
     return FrameData(pyramid=pyramid, corner_mask=masks, corner_score=scores)
 
 
+def make_frames(imgs, config: SLAMConfig) -> FrameData:
+    """make_frame for S frames at once (one per camera stream): imgs
+    [S, H, W] -> a FrameData whose tensors carry the leading stream axis.
+    Makes ONE FAST launch for all streams and levels, where the JAX
+    package's vmap of make_frame runs one kernel call per stream."""
+    tc = config.tracker
+    pyramid = tuple(lvl.contiguous()
+                    for lvl in image.make_pyramid(imgs, tc.n_levels))
+    masks, scores = fast.detect_levels_streams(pyramid, tc.fast_thresholds)
+    return FrameData(pyramid=pyramid, corner_mask=masks, corner_score=scores)
+
+
 def make_frame_extras(frame: FrameData, config: SLAMConfig) -> FrameExtras:
     """MakeKeyFrame_Rest (jni/KeyFrame.cc:53-101): nonmax corners
     re-scored with barrier 10 (KeyFrame.cc:62; one fused FAST launch for

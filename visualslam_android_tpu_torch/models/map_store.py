@@ -201,6 +201,34 @@ def refresh_pixel_vectors(points: PointStore,
     return points.replace(pixel_right_w=right_w, pixel_down_w=down_w)
 
 
+def first_free_slot(valid):
+    """Index of the first unused slot (or 0 for an all-True array: callers
+    check capacity with `valid.all()`)."""
+    return torch.argmin(valid.to(torch.int32))
+
+
+def add_measurement(meas: MeasStore, point_idx, kf_idx, uv, level, source,
+                    subpix) -> MeasStore:
+    """A copy of `meas` with one measurement in the first free
+    observation slot of `point_idx` (unchanged if the point's O slots are
+    full)."""
+    row_valid = meas.valid[point_idx]
+    slot = first_free_slot(row_valid)
+    ok = ~torch.all(row_valid)
+
+    def upd(arr, val):
+        val = torch.as_tensor(val, dtype=arr.dtype, device=arr.device)
+        out = arr.clone()
+        out[point_idx, slot] = torch.where(ok, val, arr[point_idx, slot])
+        return out
+
+    return MeasStore(
+        kf=upd(meas.kf, kf_idx), uv=upd(meas.uv, uv),
+        level=upd(meas.level, level), source=upd(meas.source, source),
+        subpix=upd(meas.subpix, subpix), valid=upd(meas.valid, ok),
+    )
+
+
 def meas_kf_mask(meas: MeasStore, kf_idx):
     """[N, O] mask of measurements belonging to keyframe kf_idx."""
     return meas.valid & (meas.kf == kf_idx)

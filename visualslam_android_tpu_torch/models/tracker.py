@@ -215,8 +215,10 @@ def track_map(frame: FrameData, slam_map: SLAMMap, cam, R, t,
         ((velocity_msd_mag >= tc.coarse_min_velocity) & (not tc.disable_coarse))
         | recovered
     ) & (n_high > tc.coarse_min)
-    coarse_sel = torch.zeros(N, dtype=torch.bool, device=device)
-    coarse_sel.index_fill_(0, top_idx, True)
+    # Out-of-place writes throughout, so the function also runs under
+    # torch.func.vmap (parallel/replicated_tracking.stream_step).
+    coarse_sel = torch.zeros(N, dtype=torch.bool, device=device).index_fill(
+        0, top_idx, True)
     coarse_sel = coarse_sel & high & try_coarse
 
     # ---- Fine set selection (Tracker.cc:495-538) ----
@@ -226,8 +228,8 @@ def track_map(frame: FrameData, slam_map: SLAMMap, cam, R, t,
     budget = torch.clamp(tc.max_patches_per_frame - n_so_far, min=0)
     rest_key = torch.where(rest, rand2, -1.0)
     order = torch.sort(-rest_key, stable=True).indices
-    rank_of = torch.empty(N, dtype=torch.long, device=device)
-    rank_of[order] = torch.arange(N, device=device)
+    rank_of = torch.empty(N, dtype=torch.long, device=device).scatter(
+        0, order, torch.arange(N, device=device))
     f_active = top_level | (rest & (rank_of < budget))
 
     # Compact the fine set into F lanes (actives first, random order).
@@ -338,12 +340,12 @@ def track_map(frame: FrameData, slam_map: SLAMMap, cam, R, t,
     # The blocks' active sets are disjoint on points (fine excludes
     # coarse_sel; without try_coarse the coarse block is inactive).
     def scatter(base, val_c, val_f):
-        out = base.clone()
+        out = base
         for idx, val, on in ((fine_idx, val_f, f_lane_on),
                              (top_idx, val_c, c_lane_sel)):
             cur = out[idx]
             m = on if cur.dim() == 1 else on[:, None]
-            out[idx] = torch.where(m, val, cur)
+            out = out.index_put((idx,), torch.where(m, val, cur))
         return out
 
     zeros_b = torch.zeros(N, dtype=torch.bool, device=device)
@@ -368,14 +370,17 @@ def track_map(frame: FrameData, slam_map: SLAMMap, cam, R, t,
 # ---------------------------------------------------------------------------
 
 
-def apply_motion_model(R, t, velocity, sbi_rot, use_sbi: bool):
+def apply_motion_model(R, t, velocity, sbi_rot, use_sbi):
     """ApplyMotionModel (Tracker.cc:781-798): pose <- exp(v) * pose, with
     the SBI rotation replacing the rotational velocity (and zeroing the
-    in-plane translation) when use_sbi."""
-    v = velocity
-    if use_sbi:
-        v = torch.cat([torch.zeros_like(velocity[:2]), velocity[2:3],
-                       sbi_rot[3:]])
+    in-plane translation) when use_sbi: a Python bool, or a bool tensor
+    chosen on the device (a stream's first frame has no SBI prior)."""
+    v = torch.cat([torch.zeros_like(velocity[:2]), velocity[2:3],
+                   sbi_rot[3:]])
+    if isinstance(use_sbi, torch.Tensor):
+        v = torch.where(use_sbi, v, velocity)
+    elif not use_sbi:
+        v = velocity
     dR, dt = lie.se3_exp(v)
     return lie.se3_mul(dR, dt, R, t)
 

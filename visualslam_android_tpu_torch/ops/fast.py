@@ -13,6 +13,11 @@ tensors on a CUDA device:
 
 - ``detect_levels``: all pyramid levels of a frame in one launch
   (``make_frame``); plain version ``detect_reference`` per level;
+- ``detect_levels_streams``: the same for S frames at once, levels
+  [S, H_l, W_l], one launch with the frame in the kernel's grid
+  (``make_frames``, the multi-stream front-end; the JAX package's
+  ``custom_vmap`` rule of ``_detect_vmappable``); plain version
+  ``detect_levels_streams_reference``;
 - ``detect``: one image, the same kernel with one level descriptor;
 - ``nonmax_levels``: the barrier-10 rescore fused with the 3x3 non-max
   suppression on all levels in one launch (``make_frame_extras``); plain
@@ -58,7 +63,8 @@ class _DetectArg(ctypes.Structure):
 
     _fields_ = [("img", ctypes.c_void_p), ("mask", ctypes.c_void_p),
                 ("score", ctypes.c_void_p), ("H", ctypes.c_int),
-                ("W", ctypes.c_int), ("threshold", ctypes.c_float)]
+                ("W", ctypes.c_int), ("threshold", ctypes.c_float),
+                ("stride", ctypes.c_longlong)]
 
 
 class _NonmaxArg(ctypes.Structure):
@@ -73,7 +79,7 @@ class _NonmaxArg(ctypes.Structure):
 def _library():
     lib = cuda_build.load(_SOURCE)
     lib.fast_detect_levels.argtypes = [
-        ctypes.POINTER(_DetectArg), ctypes.c_int, ctypes.c_int,
+        ctypes.POINTER(_DetectArg), ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p,
     ]
     lib.fast_detect_levels.restype = ctypes.c_int
@@ -91,10 +97,10 @@ def build_kernel() -> str:
     return cuda_build.build(_SOURCE)
 
 
-def _check_image(img, what):
-    if img.dtype != torch.float32 or img.dim() != 2 or img.numel() == 0:
-        raise ValueError(f"{what} takes non-empty 2-D float32 images, got "
-                         f"{img.dtype} {tuple(img.shape)}")
+def _check_image(img, what, ndim=2):
+    if img.dtype != torch.float32 or img.dim() != ndim or img.numel() == 0:
+        raise ValueError(f"{what} takes non-empty {ndim}-D float32 images, "
+                         f"got {img.dtype} {tuple(img.shape)}")
     if not img.is_contiguous():
         raise ValueError(f"{what} takes contiguous images")
 
@@ -126,17 +132,18 @@ def _level_views(buf, levels):
     return tuple(part.view(lvl.shape) for part, lvl in zip(parts, levels))
 
 
-def _launch_levels(name, arg_type, rows, scalar, device, count=None):
+def _launch_levels(name, arg_type, rows, scalars, device, count=None):
     """Launch the library's `name` on the current stream over `rows` (the
-    fields of one `arg_type` per level), MAX_LEVELS levels per launch, and
-    count each launch under `count` (default: `name`)."""
+    fields of one `arg_type` per level), MAX_LEVELS levels per launch,
+    with the arguments `scalars` after the level count, and count each
+    launch under `count` (default: `name`)."""
     fn = getattr(_library(), name)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         for i in range(0, len(rows), MAX_LEVELS):
             chunk = rows[i:i + MAX_LEVELS]
             args = (arg_type * len(chunk))(*[arg_type(*r) for r in chunk])
-            _raise_on(fn(args, len(chunk), scalar, stream), name)
+            _raise_on(fn(args, len(chunk), *scalars, stream), name)
             LAUNCHES[count or name] += 1
 
 
@@ -182,9 +189,46 @@ def detect_levels(levels, thresholds, arc_length: int = 10):
                                count="fast_detect_levels")
 
 
+def detect_levels_streams(levels, thresholds, arc_length: int = 10):
+    """`detect_levels` on S frames at once (one per camera stream): levels
+    [S, H_l, W_l], one threshold per level; (masks, scores), tuples over
+    levels of [S, H_l, W_l]. On a CUDA device all frames and levels (up to
+    MAX_LEVELS) go in ONE launch, the frame in the kernel's grid; each
+    frame's result is the one `detect_levels` gives for it alone."""
+    levels = list(levels)
+    thresholds = list(thresholds)
+    if not levels or len(levels) != len(thresholds):
+        raise ValueError("detect_levels_streams takes one threshold per "
+                         "level")
+    for lvl in levels:
+        _check_image(lvl, "detect_levels_streams", ndim=3)
+        if lvl.shape[0] != levels[0].shape[0]:
+            raise ValueError("detect_levels_streams takes levels of one "
+                             "stream count")
+    _check_arc(arc_length)
+    device = _device_of(levels, "detect_levels_streams")
+    if device.type == "cpu":
+        return detect_levels_streams_reference(levels, thresholds,
+                                               arc_length)
+    return _detect_levels_cuda(levels, thresholds, arc_length, device,
+                               count="fast_detect_levels")
+
+
+def detect_levels_streams_reference(levels, thresholds,
+                                    arc_length: int = 10):
+    """Plain PyTorch detect_levels_streams: detect_reference per frame and
+    per level."""
+    out = [[detect_reference(frame, t, arc_length) for frame in lvl]
+           for lvl, t in zip(levels, thresholds)]
+    return (tuple(torch.stack([m for m, _ in lv]) for lv in out),
+            tuple(torch.stack([s for _, s in lv]) for lv in out))
+
+
 def _detect_levels_cuda(levels, thresholds, arc_length, device, count):
-    """The detect kernel on CUDA levels, its launches counted under
-    `count`: (masks, scores), views into one buffer each."""
+    """The detect kernel on CUDA levels ([H, W], or [S, H, W] for S
+    frames in one launch), its launches counted under `count`: (masks,
+    scores), views into one buffer each."""
+    n_frames = levels[0].shape[0] if levels[0].dim() == 3 else 1
     n_pixels = sum(lvl.numel() for lvl in levels)
     masks = _level_views(
         torch.empty(n_pixels, dtype=torch.bool, device=device), levels)
@@ -192,9 +236,10 @@ def _detect_levels_cuda(levels, thresholds, arc_length, device, count):
         torch.empty(n_pixels, dtype=torch.float32, device=device), levels)
     _launch_levels(
         "fast_detect_levels", _DetectArg,
-        [(lvl.data_ptr(), m.data_ptr(), s.data_ptr(), *lvl.shape, float(t))
+        [(lvl.data_ptr(), m.data_ptr(), s.data_ptr(), *lvl.shape[-2:],
+          float(t), lvl.shape[-2] * lvl.shape[-1])
          for lvl, m, s, t in zip(levels, masks, scores, thresholds)],
-        int(arc_length), device, count=count,
+        (n_frames, int(arc_length)), device, count=count,
     )
     return masks, scores
 
@@ -230,7 +275,7 @@ def nonmax_levels(levels, corner_masks, barrier=10):
         "fast_nonmax_levels", _NonmaxArg,
         [(lvl.data_ptr(), cm.data_ptr(), o.data_ptr(), *lvl.shape)
          for lvl, cm, o in zip(levels, corner_masks, outs)],
-        float(barrier), device,
+        (float(barrier),), device,
     )
     return outs
 
@@ -287,6 +332,10 @@ def nonmax_3x3(corner_mask, score):
     s = torch.where(corner_mask, score, -1.0)
     neigh_max = F.max_pool2d(s[None, None], 3, stride=1, padding=1)[0, 0]
     return corner_mask & (s >= neigh_max)
+
+
+def corner_count(mask):
+    return torch.sum(mask, dtype=torch.int32)
 
 
 def top_k_corners(mask, score, k: int, border: int = 0):

@@ -63,6 +63,32 @@ def bilinear_sample(img, xy):
     return (1 - fy) * top + fy * bot
 
 
+def in_image_with_border(shape_hw, xy, border):
+    """(x, y) strictly inside [border, W-border) x [border, H-border)
+    (ImageHandler.cpp:120-122)."""
+    H, W = shape_hw
+    x, y = xy[..., 0], xy[..., 1]
+    return (x >= border) & (y >= border) & (x < W - border) & (y < H - border)
+
+
+def affine_warp_patch(img, M, in_center, out_half_size, default=0.0):
+    """A warped square patch: out(i, j) = img(in_center + M @ d) with
+    d = (j, i) - out_center, the reference's ``transform_image``
+    (ImageHandler.cpp:21-113) for centered square patches (its only use,
+    PatchFinder.cc:79-125). Batched over leading axes of M [..., 2, 2] and
+    in_center [..., 2]. Returns (patch [..., n, n], n_outside [...]), the
+    reference's out-of-image count; outside reads take `default`."""
+    n = 2 * out_half_size + 1
+    offs = patch_grid(out_half_size, img.device, M.dtype)  # [n*n, 2]
+    src = in_center[..., None, :] + offs @ M.transpose(-1, -2)
+    H, W = img.shape[-2:]
+    valid = ((src[..., 0] >= 0) & (src[..., 1] >= 0)
+             & (src[..., 0] < W - 1) & (src[..., 1] < H - 1))
+    vals = torch.where(valid, bilinear_sample(img, src), default)
+    return (vals.reshape(*vals.shape[:-1], n, n),
+            torch.sum(~valid, dim=-1))
+
+
 def patch_grid(half_size, device=None, dtype=torch.float32):
     """[(2h+1)^2, 2] grid of (x, y) offsets centered on 0, row-major, on
     `device` (the CUDA card when None)."""

@@ -14,6 +14,8 @@ from __future__ import annotations
 
 import torch
 
+from visualslam_android_tpu_torch.utils.tensors import default_device
+
 _EPS = 1e-8
 
 
@@ -153,6 +155,29 @@ def se3_inverse(R, t):
     return Rt, -_matvec(Rt, t)
 
 
+def se3_apply(R, t, x):
+    """Transform points x[..., 3]."""
+    return _matvec(R, x) + t
+
+
+def se3_matrix(R, t):
+    """Stack (R, t) into [..., 3, 4]."""
+    return torch.cat([R, t[..., None]], dim=-1)
+
+
+def se3_unstack(T):
+    """[..., 3, 4] -> (R [..., 3, 3], t [..., 3])."""
+    return T[..., :3], T[..., 3]
+
+
+def se3_identity(batch_shape=(), dtype=torch.float32, device=None):
+    """(R, t) of the identity, broadcast to batch_shape, on `device` (the
+    CUDA card when None)."""
+    device = default_device(device)
+    R = torch.eye(3, dtype=dtype, device=device).expand(*batch_shape, 3, 3)
+    return R, torch.zeros(*batch_shape, 3, dtype=dtype, device=device)
+
+
 # --- SO(2) / SE(2): SmallBlurryImage ESM alignment (jni/RT.h:416-489). ---
 
 
@@ -194,6 +219,11 @@ def se2_ln(R, t):
         [torch.stack([A, B], dim=-1), torch.stack([-B, A], dim=-1)], dim=-2
     ) / det[..., None, None]
     return torch.cat([_matvec(Vinv, t), theta[..., None]], dim=-1)
+
+
+def se2_inverse(R, t):
+    Rt = R.transpose(-1, -2)
+    return Rt, -_matvec(Rt, t)
 
 
 def se2_mul(Ra, ta, Rb, tb):

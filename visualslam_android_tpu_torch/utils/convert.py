@@ -29,6 +29,9 @@ from visualslam_android_tpu_torch.models.map_store import (
     SLAMMap,
 )
 from visualslam_android_tpu_torch.ops.camera import Camera
+from visualslam_android_tpu_torch.parallel.replicated_tracking import (
+    StreamState,
+)
 from visualslam_android_tpu_torch.ops.sbi import SBI
 from visualslam_android_tpu_torch.utils.tensors import default_device
 
@@ -59,6 +62,15 @@ def camera_from_numpy(tree, device=None) -> Camera:
 
 def sbi_from_numpy(tree, device=None) -> SBI:
     return _convert(SBI, tree, device)
+
+
+def stream_state_from_numpy(tree, device=None) -> StreamState:
+    """The JAX package's replicated_tracking.StreamState, SBI included."""
+    fields = {f.name: _tensor(getattr(tree, f.name), device)
+              for f in dataclasses.fields(StreamState)
+              if f.name != "sbi_last"}
+    return StreamState(sbi_last=sbi_from_numpy(tree.sbi_last, device),
+                       **fields)
 
 
 def frame_from_numpy(tree, device=None) -> FrameData:
