@@ -315,13 +315,17 @@ def test_constructors_build_on_the_card_unless_told():
         lambda **kw: replicated_tracking.init_streams(
             2, np.eye(3), np.zeros(3), cfg, **kw),
         lambda **kw: tlie.se3_identity((2,), **kw),
+        lambda **kw: tfix.build_band_ba_map(rng, n_kf=4, n_pts=8, **kw),
+        lambda **kw: tsyn.random_structure(rng, 4, **kw),
+        lambda **kw: tsyn.make_photo_scene(tile=1, **kw),
     ]
     functions = [tms.empty_map, tcam.make_camera, timg.patch_grid,
                  tsyn.look_at_pose, tsyn.make_planar_scene,
                  tfix.build_fixed_map, replicated_tracking.init_streams,
-                 tlie.se3_identity] + [
+                 tlie.se3_identity, tfix.build_band_ba_map,
+                 tsyn.random_structure, tsyn.make_photo_scene] + [
         getattr(convert, n) for n in dir(convert) if n.endswith("_from_numpy")]
-    assert len(functions) == 8 + 11
+    assert len(functions) == 11 + 11
     for fn in functions:
         assert inspect.signature(fn).parameters["device"].default is None, fn
     if torch.cuda.is_available():

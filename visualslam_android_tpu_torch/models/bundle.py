@@ -35,9 +35,10 @@ slots apart). Solvers:
 - "band_pcg": the same iteration on the block band.
 
 The JAX package's one-hot contractions ("onehot") name the same sums and
-run the scatter form here. Its multi-device reductions (a mesh axis, the
-histogram sigma, the halo reduction) are not ported: their names raise
-NotImplementedError.
+run the scatter form here. The robust sigma is the exact masked median
+("gather") or the log2-histogram median ("hist", its multi-device form run
+on one device). The multi-device reductions (a mesh axis, the halo
+reduction) are not ported: their names raise NotImplementedError.
 
 The two nested loops read the device once per inner iteration: three
 flags (objective rose, objective fell, update below the limit) in one
@@ -74,8 +75,8 @@ CG_CHUNK = 16
 # What bundle_adjust runs, and what waits: name -> ROADMAP queue 1 item.
 _ASSEMBLIES = {"scatter": None, "onehot": None, "band": None}
 _SOLVERS = {"chol": None, "pcg": None, "band_pcg": None}
-_SIGMA_MODES = {"gather": None, "hist": 12}
-_REDUCE_MODES = {"psum": None, "halo": 12}
+_SIGMA_MODES = {"gather": None, "hist": None}
+_REDUCE_MODES = {"psum": None, "halo": 5}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -348,7 +349,7 @@ def _check_modes(axis_name, assembly, solver, sigma_mode, reduce_mode):
     if axis_name is not None:
         raise NotImplementedError(
             "bundle_adjust over a mesh axis (axis_name) is not ported: "
-            "ROADMAP queue 1 item 12"
+            "ROADMAP queue 1 item 5"
         )
     for kind, name, table in (("assembly", assembly, _ASSEMBLIES),
                               ("solver", solver, _SOLVERS),
@@ -364,16 +365,18 @@ def _check_modes(axis_name, assembly, solver, sigma_mode, reduce_mode):
 
 
 def _linearize(prob: BAProblem, cam, R, t, pts, meas_valid, cam_fixed_m,
-               min_sigma_sq):
+               min_sigma_sq, sigma_mode="gather"):
     """The first half of an LM step (Bundle.cc:209-321) at (R, t, pts):
-    robust sigma, the objective, the ejection mask and the accumulators.
+    robust sigma (exact median or, for sigma_mode "hist", the histogram
+    median), the objective, the ejection mask and the accumulators.
     Returns a dict of tensors."""
     K = R.shape[0]
     dtype, device = pts.dtype, pts.device
     pc, err, err_sq, z_bad = _project_all(cam, R, t, pts, prob)
     ok = meas_valid & ~z_bad
-    sigma_sq = me.find_sigma_squared(err_sq.reshape(-1), ok.reshape(-1),
-                                     me.TUKEY)
+    find_sigma = (me.find_sigma_squared_hist if sigma_mode == "hist"
+                  else me.find_sigma_squared)
+    sigma_sq = find_sigma(err_sq.reshape(-1), ok.reshape(-1), me.TUKEY)
     sigma_sq = torch.clamp(sigma_sq, min=min_sigma_sq)
     sqrt_w = me.square_root_weight(err_sq, sigma_sq, me.TUKEY)
     bad = meas_valid & (z_bad | (sqrt_w == 0.0))
@@ -573,7 +576,8 @@ def bundle_adjust(
     max_pair_offset, pairs further apart are dropped); solver "chol",
     "pcg" (the assembly is not read: S is never formed) and "band_pcg"
     (block band of band_halfwidth), the CG solvers bounded by cg_iters and
-    cg_tol; sigma_mode "gather", reduce_mode "psum" without a mesh axis.
+    cg_tol; sigma_mode "gather" or "hist", reduce_mode "psum", without a
+    mesh axis.
     The other names the JAX package knows raise NotImplementedError;
     shard_rows belongs to those and is not read."""
     _check_modes(axis_name, assembly, solver, sigma_mode, reduce_mode)
@@ -591,7 +595,7 @@ def bundle_adjust(
 
     while not converged and counter < max_iters:
         lin = _linearize(prob, cam, R, t, pts, meas_valid, cam_fixed_m,
-                         min_sigma_sq)
+                         min_sigma_sq, sigma_mode)
         # Inner lambda loop: raise the damping until the objective falls,
         # the update converges or the budget ends.
         while True:

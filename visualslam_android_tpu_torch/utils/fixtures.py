@@ -1,16 +1,18 @@
 """A rendered planar scene with a ground-truth fixed map: the state the
 tracking step runs against in tests, ``chip_smoke.py`` and benchmarks.
 
-Port of ``small_config``, ``full_config`` and ``build_fixed_map`` from the
-JAX package's ``utils/fixtures.py``. The map is built on the given device
-directly.
+Port of ``small_config``, ``full_config``, ``build_fixed_map`` and
+``build_band_ba_map`` from the JAX package's ``utils/fixtures.py``. The map
+is built on the given device directly.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from visualslam_android_tpu_torch.config import (
+    BundleConfig,
     MapMakerConfig,
     SLAMConfig,
     TrackerConfig,
@@ -18,6 +20,7 @@ from visualslam_android_tpu_torch.config import (
 from visualslam_android_tpu_torch.models import keyframe as kf_mod
 from visualslam_android_tpu_torch.models import map_store
 from visualslam_android_tpu_torch.ops import camera as cam_ops
+from visualslam_android_tpu_torch.ops import lie
 from visualslam_android_tpu_torch.utils import synthetic
 from visualslam_android_tpu_torch.utils.tensors import default_device
 
@@ -40,6 +43,87 @@ def full_config() -> SLAMConfig:
         tracker=TrackerConfig(max_map_points=2048),
         mapmaker=MapMakerConfig(max_keyframes=32),
     )
+
+
+def build_band_ba_map(rng, n_kf=512, n_pts=30000, obs_per_pt=4,
+                      width=64, height=48, noise_px=0.3,
+                      pose_perturb=0.004, point_perturb=0.01, device=None):
+    """A KITTI-scale band-diagonal bundle problem as a full SLAMMap (JAX
+    ``fixtures.py:42-149``): n_kf keyframes 0.1 m apart along a straight
+    path (all R = I), points at depth 3.6-6, each observed by the
+    obs_per_pt cameras nearest its x coordinate, so the reduced camera
+    system is band-sparse as on an odometry run. Ground-truth geometry with
+    noise_px of pixel noise; every pose but keyframe 0's and every point
+    perturbed. The numpy draws are the JAX package's, in its order, so one
+    seed gives the same map.
+
+    Built on `device` (the CUDA card when None). Returns (config,
+    slam_map, cam, adjust_mask)."""
+    device = default_device(device)
+    config = SLAMConfig(
+        tracker=TrackerConfig(
+            width=width, height=height,
+            max_map_points=n_pts,
+            max_corners_per_level=(64, 32, 16, 8),
+        ),
+        mapmaker=MapMakerConfig(max_keyframes=n_kf),
+        bundle=BundleConfig(max_obs_per_point=obs_per_pt),
+    )
+    cam = cam_ops.make_camera(config.camera.params(), width, height,
+                              device=device)
+
+    spacing = 0.1
+    cam_x = spacing * np.arange(n_kf)
+    pts = np.stack([rng.uniform(-0.5, cam_x[-1] + 0.5, n_pts),
+                    rng.uniform(-1.2, 1.2, n_pts),
+                    rng.uniform(3.6, 6.0, n_pts)], axis=-1).astype(np.float32)
+    # Each point sees the obs_per_pt cameras nearest its x coordinate
+    # (R = I, t = -center).
+    k0 = np.clip(np.round(pts[:, 0] / spacing).astype(int) - obs_per_pt // 2,
+                 0, n_kf - obs_per_pt)
+    kf_idx = k0[:, None] + np.arange(obs_per_pt)[None, :]  # [N, O]
+    centers = np.stack([cam_x, np.zeros(n_kf), np.zeros(n_kf)],
+                       -1).astype(np.float32)
+    pc = pts[:, None, :] - centers[kf_idx]  # [N, O, 3]
+    m = torch.from_numpy(pc[..., :2] / pc[..., 2:]).to(device)
+    px = cam_ops.project(cam, m.reshape(-1, 2)).cpu().numpy().reshape(
+        n_pts, obs_per_pt, 2)
+    in_img = ((px[..., 0] >= 1) & (px[..., 0] < width - 1)
+              & (px[..., 1] >= 1) & (px[..., 1] < height - 1))
+    px = px + rng.normal(scale=noise_px, size=px.shape).astype(np.float32)
+
+    def dev(x, dtype=None):
+        return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+
+    sm = map_store.empty_map(config, device=device)
+    dmu = rng.normal(scale=pose_perturb, size=(n_kf, 6)).astype(np.float32)
+    dmu[0] = 0.0
+    R_init, t_init = lie.se3_mul(
+        *lie.se3_exp(dev(dmu)),
+        torch.eye(3, device=device).expand(n_kf, 3, 3), dev(-centers))
+    fixed = torch.zeros(n_kf, dtype=torch.bool, device=device)
+    fixed[0] = True
+    kfs = sm.keyframes.replace(
+        valid=torch.ones(n_kf, dtype=torch.bool, device=device),
+        fixed=fixed, R=R_init, t=t_init,
+        depth_mean=torch.full((n_kf,), 4.5, device=device),
+        depth_sigma=torch.full((n_kf,), 0.8, device=device),
+    )
+    pts_init = pts + rng.normal(scale=point_perturb,
+                                size=pts.shape).astype(np.float32)
+    points = sm.points.replace(
+        valid=torch.ones(n_pts, dtype=torch.bool, device=device),
+        pos_w=dev(pts_init), source_kf=dev(kf_idx[:, 0], torch.int32))
+    source = np.full((n_pts, obs_per_pt), map_store.SRC_EPIPOLAR, np.int32)
+    source[:, 0] = map_store.SRC_ROOT
+    meas = sm.meas.replace(
+        kf=dev(kf_idx, torch.int32), uv=dev(px),
+        level=torch.zeros((n_pts, obs_per_pt), dtype=torch.int32,
+                          device=device),
+        source=dev(source), valid=dev(in_img))
+    sm = sm.replace(keyframes=kfs, points=points, meas=meas,
+                    good=torch.ones((), dtype=torch.bool, device=device))
+    return config, sm, cam, kfs.valid & ~kfs.fixed
 
 
 def build_fixed_map(config: SLAMConfig, rng, per_level=(60, 40, 24, 12),

@@ -1,15 +1,19 @@
 """Synthetic rendered scenes: a textured world plane rendered through the
 ATAN camera from any pose (exact inverse warp).
 
-Port of the parts of the JAX package's ``utils/synthetic.py`` that the
-tracking slice uses. The texture is drawn with numpy from the caller's
+Port of the JAX package's ``utils/synthetic.py``, plus ``degrade``, the
+sensor degradations of its ``tools/make_tum_synthetic.py``. Textures, noise
+and structure are drawn with numpy from the caller's
 ``numpy.random.Generator`` in the same order as the JAX package, so one
-seed gives the same scene in both.
+seed gives the same scene in both. The photograph behind
+``make_photo_scene`` ships with the package as a grey PNG
+(``data/grace_hopper_L.png``), so no image library is needed to read it.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 import torch
@@ -17,6 +21,7 @@ import torch
 from visualslam_android_tpu_torch.ops import camera as cam_ops
 from visualslam_android_tpu_torch.ops import image as img_ops
 from visualslam_android_tpu_torch.ops import lie
+from visualslam_android_tpu_torch.utils import imageio
 from visualslam_android_tpu_torch.utils.tensors import (
     TensorTree,
     default_device,
@@ -55,6 +60,64 @@ def make_planar_scene(rng, depth=4.0, tex_size=1024, px_per_m=160.0,
     tex = np.clip(tex, 0, 255)
     t = img_ops.gaussian_blur(torch.from_numpy(tex).to(device), blur)
     return PlanarScene(texture=t, depth=depth, px_per_m=px_per_m)
+
+
+PHOTO_PATH = os.path.join(os.path.dirname(os.path.dirname(__file__)),
+                          "data", "grace_hopper_L.png")
+
+
+def make_photo_scene(depth=4.0, px_per_m=160.0, tile=2, photo_path=None,
+                     device=None) -> PlanarScene:
+    """Planar scene textured with a real photograph (natural texture
+    statistics: smooth shading, low-contrast regions, photographic noise),
+    mirror-tiled tile x tile times so that no seam is a step. The default
+    photograph is the package's ``data/grace_hopper_L.png``; any grey or
+    colour PNG / PNM is read through ``utils/imageio.read_gray``. On
+    `device` (the CUDA card when None)."""
+    device = default_device(device)
+    g = imageio.read_gray(photo_path or PHOTO_PATH).astype(np.float32)
+    row = np.concatenate([g, g[:, ::-1]] * tile, axis=1)
+    full = np.concatenate([row, row[::-1]] * tile, axis=0)
+    return PlanarScene(texture=torch.from_numpy(full).to(device),
+                       depth=depth, px_per_m=px_per_m)
+
+
+def apply_sensor_effects(img, rng, exposure_gain=1.0, exposure_bias=0.0,
+                         noise_std=2.0, blur_sigma=0.0):
+    """Camera realism for a rendered frame, on the frame's device: exposure
+    drift (gain, bias), optional defocus blur (``ops/image.gaussian_blur``),
+    Gaussian read noise drawn from the host's `rng` (one draw of the
+    frame's shape, as the JAX package draws it), clipped to [0, 255]."""
+    out = img.to(torch.float32) * float(exposure_gain) + float(exposure_bias)
+    if blur_sigma > 0:
+        out = img_ops.gaussian_blur(out, float(blur_sigma))
+    if noise_std > 0:
+        noise = rng.normal(scale=noise_std, size=tuple(out.shape))
+        out = out + torch.from_numpy(noise.astype(np.float32)).to(out.device)
+    return torch.clamp(out, 0.0, 255.0)
+
+
+def degrade(img, k, rng, strength=1.0):
+    """Frame k's sensor degradations of the TUM-format stand-in sequence
+    (``tools/make_tum_synthetic.py:27-47``), in float64 numpy: a slow
+    sinusoidal exposure gain and offset, a defocus blur whose sigma sweeps
+    0-1.1 px over the sequence, ~12% vignetting at the corners and Gaussian
+    sensor noise from `rng`. Returns [h, w] float64 in [0, 255]."""
+    from scipy import ndimage
+
+    h, w = img.shape
+    out = np.asarray(img, np.float64)
+    gain = 1.0 + 0.18 * strength * np.sin(0.13 * k)
+    offset = 10.0 * strength * np.sin(0.07 * k + 1.0)
+    out = out * gain + offset
+    sigma = strength * (0.55 + 0.55 * np.sin(0.21 * k + 2.0))
+    if sigma > 0.05:
+        out = ndimage.gaussian_filter(out, sigma)
+    ys, xs = np.mgrid[0:h, 0:w]
+    r2 = ((xs - w / 2) / (w / 2)) ** 2 + ((ys - h / 2) / (h / 2)) ** 2
+    out = out * (1.0 - 0.12 * strength * r2)
+    out = out + rng.normal(scale=2.0 * strength, size=out.shape)
+    return np.clip(out, 0, 255)
 
 
 def _pixel_rays(cam, px):
@@ -125,3 +188,14 @@ def sideways_pose(R0, t0, s):
     )
     dR, dt = lie.se3_exp(mu)
     return lie.se3_mul(dR, dt, R0, t0)
+
+
+def random_structure(rng, n_points, depth_range=(3.0, 6.0), xy_range=2.0,
+                     device=None):
+    """Random 3D points [n_points, 3] for estimation-only tests, on
+    `device` (the CUDA card when None)."""
+    device = default_device(device)
+    xy = rng.uniform(-xy_range, xy_range, size=(n_points, 2))
+    z = rng.uniform(*depth_range, size=(n_points, 1))
+    return torch.tensor(np.concatenate([xy, z], axis=-1),
+                        dtype=torch.float32, device=device)
