@@ -13,8 +13,11 @@ bundle adjustment at the map's full capacities and at 128 keyframe slots
 through every solver; full SLAM through the facade at the default and at
 the large-map configuration; the command line on the four TUM-format
 sequences; four camera streams tracked together in one batched program;
-and the slow tier: bundle adjustment at 512 keyframes, a 200-frame drift
-audit and a run on a real photograph with sensor effects.
+the slow tier: bundle adjustment at 512 keyframes, a 200-frame drift
+audit and a run on a real photograph with sensor effects; and the
+multi-device paths (sharded bundle adjustment, sharded re-find and
+epipolar search, replicated tracking) on one rank over NCCL and on four
+ranks sharing the card over gloo.
 
 1. device: requires CUDA; prints the card's name and power limit;
 2. build: compiles the CUDA kernels (csrc/fast.cu) with nvcc and prints
@@ -186,13 +189,42 @@ audit and a run on a real photograph with sensor effects.
    more than 100 points, and the ATE under 7.5% of the span: that file's
    4.5% is not met by the JAX package itself on these frames (6.10% on the
    CPU). Phases 15 and 16 also require a finite map and FAST launched once
-   per front-end run and once per keyframe.
+   per front-end run and once per keyframe;
+17. the multi-device paths (parallel/mesh, sharded_ba, sharded_mapping,
+   replicated_tracking.replicated_step_fn), run right after phase 13 on
+   phase 4's map and frames. After the FAST library is built here, every
+   leg runs on spawned ranks (parallel/mesh.run_ranks) at D = 1 over NCCL
+   (device transport) and at D = 4 ranks sharing the card over gloo (host
+   transport), and is held against the single-device function on the
+   card: (1) sharded BA, scatter + chol, on phase 9's 128-slot problem (20
+   LM iterations, to the optimum); (2) band_pcg with the histogram sigma
+   on phase 14's 512-keyframe / 30,000-point problem (5 LM iterations); (3)
+   sharded_bundle_adjust_halo on it, held against leg 2's run; each by the
+   objective at the reference's sigma (rtol 1e-4), rms (1%), poses (5e-3
+   of the trajectory's length), at least one accepted step, every rank
+   holding the same cameras, and one LM step's collectives by site equal
+   to sharded_ba.comm_bytes_per_lm_step (the scalars: port_scalar_bytes);
+   (4) both sharded re-finds in a second keyframe rendered at
+   __graft_entry__.py's motion: found and never-retry sets and the
+   measurement mask equal to refind_in_keyframe's (and to
+   refind_in_keyframes_batched's keyframe-1 row), uv within 1e-4; (5)
+   sharded_epipolar_search at levels 0-2 (candidates thinned at radius
+   3): success sets equal to epipolar_search's, pos_w and target_uv within
+   1e-3, at least 32 successes over the levels; (6) replicated_step_fn at
+   S = 4 for 20 steps (after 2 untimed): n_found and quality equal to
+   stream_step's on the card, R and t within 1e-4, one FAST launch per
+   rank per step. Printed: each leg's wall time and ms per LM iteration,
+   the payload bytes against the model, the host copies, the backend and
+   transport, and each collective's median time alone (4 bytes and 2.36 MB
+   a rank).
 
 Any failed check raises and the script exits non-zero. The last two lines
 of standard output are a JSON object describing the kernels (`launches`
-is the sum over phases 4, 7, 9-16, `launches_by_path` gives
-each; the row fast_detect_levels_streams is the same kernel's
-stream-gridded launch, counted on the streams path) and
+is the sum over phases 4, 7, 9-17, `launches_by_path` gives
+each, phase 17's as "sharded" (this process: the second keyframe) and
+"sharded_ranks" (the ranks' launches, summed); the row
+fast_detect_levels_streams is the same kernel's stream-gridded launch,
+counted on the streams path and by the ranks) and
 the ``{"ok": true, "device": ...}`` line. It imports no jax.
 """
 
@@ -336,6 +368,29 @@ STREAM_SINGLE_STEPS = 5     # streams against S = 1 stream_step
 STREAM_CPU_STEPS = 3        # card against the CPU
 STREAM_PROFILE_STEPS = 5
 STREAM_SINGLE_ATOL = 1e-4   # tests/test_replicated_tracking.py's atol
+# Phase 17: the multi-device paths. Each (ranks, backend, transport) runs
+# every leg; on one card the four ranks share it over gloo through host
+# memory (NCCL refuses two ranks on one device).
+SHARDED_RUNS = ((1, "nccl", "device"), (4, "gloo", "host"))
+SHARDED_TIMEOUT = 480        # s, each set of ranks
+SHARDED_THREADS = 2          # torch CPU threads per rank
+SHARDED_BA128_ITERS = 20     # LM iterations of leg 1 (to the optimum)
+SHARDED_BA_ITERS = 5         # LM iterations of legs 2 and 3 (512 keyframes)
+SHARDED_BA_KW = dict(solver="band_pcg", band_halfwidth=16, sigma_mode="hist",
+                     point_block=1024, cg_iters=300, cg_tol=1e-7)
+SHARDED_OBJ_RTOL = 1e-4      # objective at one sigma
+SHARDED_RMS_RTOL = 0.01
+SHARDED_POSE_SHARE = 5e-3    # of the trajectory's length
+SHARDED_UV_ATOL = 1e-4       # re-found measurements, px
+SHARDED_EPI_ATOL = 1e-3      # epipolar pos_w and target_uv
+# The second keyframe of legs 4-5: __graft_entry__.py:165-177's motion.
+SHARDED_KF1_MU = (0.22, 0.02, 0.0, 0.0, 0.05, 0.0)
+SHARDED_EPI_LEVELS = (0, 1, 2)
+SHARDED_STEPS = 20           # leg 6
+# f32 elements of the collectives timed alone: one scalar, and leg 1's
+# dense Schur correction (128 cameras: 2.36 MB).
+SHARDED_PROBE_FLOATS = (1, (6 * BIG_K) ** 2)
+SHARDED_WARMUP = 2
 # Published peaks of one H100 SXM: HBM3 rate and f32 rate outside the tensor
 # cores.
 H100_BYTES_PER_S = 3.35e12
@@ -2569,6 +2624,358 @@ def phase_streams(device, card, fast, rt, sbi_ops, kf_mod, tracker, image,
     return launches, kern
 
 
+def sharded_second_keyframe(device, config, sm, cam, scene, poses, kf_mod,
+                            lie, synthetic, fast):
+    """Legs 4-5's map: phase 4's fixed map with keyframe 1 rendered at
+    SHARDED_KF1_MU from frame 0's pose (the JAX package's multi-device
+    dry run, __graft_entry__.py:165-177, at full size) and the scene-depth
+    statistics the epipolar search reads (tests/test_mapmaker.py's
+    two_kf_map), with the epipolar depth cap widened as there. Returns
+    (config, map, the FAST launches it made)."""
+    import dataclasses
+
+    cfg = dataclasses.replace(config, mapmaker=dataclasses.replace(
+        config.mapmaker, epipolar_depth_max_factor=100.0))
+    tc = cfg.tracker
+    R0, t0 = poses[0]
+    dR, dt = lie.se3_exp(torch.tensor(SHARDED_KF1_MU, device=device))
+    R1, t1 = lie.se3_mul(dR, dt, R0, t0)
+    for key in fast.LAUNCHES:
+        fast.LAUNCHES[key] = 0
+    frame1 = kf_mod.make_frame(
+        synthetic.render(scene, cam, R1, t1, (tc.height, tc.width)), cfg)
+    extras1 = kf_mod.make_frame_extras(frame1, cfg)
+    sm2 = sm.clone()
+    kf_mod.insert_keyframe(sm2.keyframes, 1, frame1, extras1, R1, t1)
+    sm2.keyframes.depth_mean[1].fill_(4.0)
+    sm2.keyframes.depth_sigma[1].fill_(0.8)
+    sync(device)
+    return cfg, sm2, dict(fast.LAUNCHES)
+
+
+def _torch_tree(tree, device):
+    """A rank's numpy result (a TensorTree of arrays) as tensors."""
+    import dataclasses
+
+    def conv(x):
+        if isinstance(x, np.ndarray):
+            return torch.as_tensor(x).to(device)
+        if isinstance(x, tuple):
+            return tuple(conv(v) for v in x)
+        if dataclasses.is_dataclass(x):
+            return _torch_tree(x, device)
+        return x
+
+    return dataclasses.replace(tree, **{
+        f.name: conv(getattr(tree, f.name)) for f in dataclasses.fields(tree)})
+
+
+def sharded_ba_parity(label, prob, cam, res, ref, bundle, mestimator):
+    """Whole sharded BA runs held at the optimum against a single-device
+    run of the same problem (tests/test_sharded_ba.py's criteria): the
+    objective at the reference's sigma, rms, poses against the trajectory's
+    length, accepted steps. Returns the printed figures."""
+    n = prob.points.shape[0]
+    res = res.replace(points=res.points[:n], meas_valid=res.meas_valid[:n],
+                      outlier_meas=res.outlier_meas[:n],
+                      point_outliers=res.point_outliers[:n])
+    sigma = ref.sigma_squared
+    obj = objective_at(prob, cam, res, sigma, bundle, mestimator)
+    obj_ref = objective_at(prob, cam, ref, sigma, bundle, mestimator)
+    rms = ba_outcome(prob, cam, res, bundle, mestimator)[0]
+    rms_ref = ba_outcome(prob, cam, ref, bundle, mestimator)[0]
+    traj = float(torch.linalg.vector_norm(ref.cam_t[-1] - ref.cam_t[0]))
+    pose = max(float(torch.max(torch.abs(res.cam_t - ref.cam_t))),
+               float(torch.max(torch.abs(res.cam_R - ref.cam_R))))
+    check(abs(obj / obj_ref - 1.0) <= SHARDED_OBJ_RTOL,
+          f"{label}: objective at one sigma {obj} against {obj_ref}")
+    check(abs(rms / rms_ref - 1.0) <= SHARDED_RMS_RTOL,
+          f"{label}: rms {rms} against {rms_ref}")
+    check(pose <= SHARDED_POSE_SHARE * traj,
+          f"{label}: poses differ by {pose}, trajectory {traj}")
+    check(int(res.accepted) >= 1, f"{label}: no step accepted")
+    check(bool(torch.isfinite(res.cam_t).all()
+               and torch.isfinite(res.points).all()),
+          f"{label}: a non-finite result")
+    return (f"objective at one sigma {obj:.4f} / {obj_ref:.4f} "
+            f"({obj / obj_ref - 1:+.2e}), rms {rms:.5f} / {rms_ref:.5f}, "
+            f"max pose diff {pose:.2e} (trajectory {traj:.3f}), "
+            f"{int(res.accepted)} / {int(ref.accepted)} steps accepted")
+
+
+def payload_line(step, model, scalars):
+    """One LM step's collectives by site beside the payload model's items
+    (sharded_ba.comm_bytes_per_lm_step; scalars: port_scalar_bytes)."""
+    sites = step["sites"]
+    items = [k for k in model if k not in ("scalars", "total")]
+    parts = [f"{k} {sites.get(k, 0)} / {model[k]}" for k in items]
+    parts.append(f"scalars {sites.get('scalars', 0)} / "
+                 f"{sum(scalars.values())} (model {model['scalars']})")
+    ok = (all(sites.get(k, 0) == model[k] for k in items)
+          and sites.get("scalars", 0) == sum(scalars.values())
+          and set(sites) <= set(items) | {"scalars"})
+    return ok, "payload bytes of one LM step, seen / model: " + ", ".join(
+        parts)
+
+
+def phase_sharded(device, card, config, sm, cam, scene, frames, poses,
+                  fast, bundle, mapmaker, kf_mod, rt, sbi_ops, fixtures,
+                  cam_ops, synthetic, lie, mestimator, runs=SHARDED_RUNS,
+                  rank_device=None, steps=SHARDED_STEPS,
+                  ba_iters=SHARDED_BA_ITERS):
+    """Phase 17: every multi-device leg at each (ranks, backend, transport)
+    of `runs`, held against the single-device port function on `device`.
+    Returns (the parent's FAST launches of the path, the ranks' FAST
+    launches summed over ranks and runs)."""
+    from visualslam_android_tpu_torch.parallel import mesh as mesh_mod
+    from visualslam_android_tpu_torch.parallel import rank_programs
+    from visualslam_android_tpu_torch.parallel import sharded_ba
+
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+    bc = config.bundle
+
+    # Inputs. The ranks get CPU copies; the references run here.
+    p128, c128, _ = make_band_problem(config, BIG_SEED, bundle, cam_ops,
+                                      synthetic, lie)
+    kw128 = dict(max_iters=SHARDED_BA128_ITERS, point_block=bc.point_block,
+                 assembly="scatter", solver="chol", band_halfwidth=BIG_BAND)
+    cfg512, sm512, c512, adjust = fixtures.build_band_ba_map(
+        np.random.default_rng(BA512_SEED), n_kf=512, n_pts=30000,
+        obs_per_pt=4, pose_perturb=0.02, point_perturb=0.03, device=device)
+    p512 = mapmaker.build_ba_problem(sm512, adjust, cfg512)
+    del sm512
+    kw512 = dict(SHARDED_BA_KW, max_iters=ba_iters)
+    halo_kw = {k: v for k, v in kw512.items() if k != "solver"}
+    cfg2, sm2, parent_launches = sharded_second_keyframe(
+        device, config, sm, cam, scene, poses, kf_mod, lie, synthetic, fast)
+    thinned = {lvl: mapmaker.thin_candidates(sm2, 1, lvl, radius=3)
+               for lvl in SHARDED_EPI_LEVELS}
+    uniforms = torch.rand(STREAMS, 2, config.tracker.max_map_points,
+                          generator=torch.Generator().manual_seed(1))
+    sframes = torch.stack([stream_frames(frames, k)
+                           for k in range(SHARDED_WARMUP + steps)])
+    start = stream_start(rt, sbi_ops, kf_mod, frames, poses[0][0],
+                         poses[0][1], config, device)
+    sm_c, cam_c = sm.to(cpu), cam.to(cpu)
+    sm2_c = sm2.to(cpu)
+    cases = [
+        ("ba128", "bundle_adjust", dict(prob=p128, cam=c128, warmup=True,
+                                        **kw128)),
+        ("ba128 step", "lm_step_bytes", dict(prob=p128, cam=c128,
+                                             **kw128)),
+        ("ba512", "bundle_adjust", dict(prob=p512.to(cpu), cam=c512.to(cpu),
+                                        warmup=True, **kw512)),
+        ("ba512 step", "lm_step_bytes", dict(prob=p512.to(cpu),
+                                             cam=c512.to(cpu), **kw512)),
+        ("halo", "bundle_adjust", dict(prob=p512.to(cpu), cam=c512.to(cpu),
+                                       mode="halo", warmup=True, **halo_kw)),
+        ("halo step", "lm_step_bytes", dict(prob=p512.to(cpu),
+                                            cam=c512.to(cpu), mode="halo",
+                                            **halo_kw)),
+        ("refind", "refind", dict(slam_map=sm2_c, kf_idx=1, cam=cam_c,
+                                  point_mask=sm2_c.points.valid,
+                                  config=cfg2, warmup=True)),
+        ("scalable", "refind_scalable", dict(
+            slam_map=sm2_c, kf_idx=1, cam=cam_c,
+            point_mask=sm2_c.points.valid, config=cfg2, warmup=True)),
+    ] + [(f"epipolar {lvl}", "epipolar", dict(
+        slam_map=thinned[lvl].to(cpu), src_kf=1, target_kf=0, cam=cam_c,
+        level=lvl, config=cfg2, warmup=True))
+        for lvl in SHARDED_EPI_LEVELS] + [
+        ("streams", "tracking", dict(
+            frames=sframes[SHARDED_WARMUP:].cpu(), state=start.to(cpu),
+            slam_map=sm_c, cam=cam_c, uniforms=uniforms, config=config,
+            warmup=SHARDED_WARMUP)),
+    ]
+    sync(device)
+    t_in = time.perf_counter() - t_phase
+
+    # The ranks: the path. Nothing else runs meanwhile.
+    results = {}
+    for D, backend, transport in runs:
+        t0 = time.perf_counter()
+        probes = [(f"collectives {n}", "collectives",
+                   dict(shapes=[(n,)] * D)) for n in SHARDED_PROBE_FLOATS]
+        results[D] = mesh_mod.run_ranks(
+            rank_programs.run_cases, D, backend, transport,
+            device=rank_device, timeout=SHARDED_TIMEOUT,
+            args=(cases + probes,), threads=SHARDED_THREADS)
+        print(f"sharded: {D} rank(s) over {backend} ({transport} "
+              f"transport) ran every leg in {time.perf_counter() - t0:.1f} "
+              f"s, start-up included  [{card}]")
+    rank_launches = {k: sum(case["launches"][k] for rs in results.values()
+                            for r in rs for case in r.values()
+                            if "launches" in case)
+                     for k in fast.LAUNCHES}
+
+    # The single-device references on `device`.
+    p128_d, c128_d = p128.to(device), c128.to(device)
+    ref128 = bundle.bundle_adjust(p128_d, c128_d, **kw128)
+    ref512 = bundle.bundle_adjust(p512, c512, **kw512)
+    ref_map, ref_found, ref_never = mapmaker.refind_in_keyframe(
+        sm2, 1, cam, sm2.points.valid, cfg2)
+    K, N = sm2.keyframes.n_slots, sm2.points.n_slots
+    mask_kn = sm2.points.valid[None].expand(K, N)
+    _, kn_found, _ = mapmaker.refind_in_keyframes_batched(sm2, cam, mask_kn,
+                                                          cfg2)
+    check(torch.equal(kn_found[1], ref_found),
+          "refind_in_keyframes_batched differs from refind_in_keyframe in "
+          "keyframe 1")
+    epi_ref = {lvl: mapmaker.epipolar_search(thinned[lvl], 1, 0, cam, lvl,
+                                             cfg2)
+               for lvl in SHARDED_EPI_LEVELS}
+    st, stream_ref = start, []
+    for k in range(steps):
+        st, o = rt.stream_step(sframes[SHARDED_WARMUP + k].to(device), st, sm,
+                               cam, uniforms.to(device), config)
+        stream_ref.append(o)
+    n_found = int(ref_found.sum())
+    check(n_found >= 32, f"the single-device re-find found {n_found} points")
+
+    figures = {}
+    for (D, backend, transport) in runs:
+        rs = results[D]
+        r0 = rs[0]
+        tag = f"D = {D}, {backend}, {transport} transport"
+        # Every rank holds the same replicated results.
+        for r in rs[1:]:
+            for name in ("ba128", "ba512", "halo"):
+                check(np.array_equal(r[name]["result"].cam_t,
+                                     r0[name]["result"].cam_t),
+                      f"{tag}: ranks hold different {name} poses")
+        legs = {}
+        for name, prob, cam_b, ref, kw, mode in (
+                ("ba128", p128_d, c128_d, ref128, kw128, "psum"),
+                ("ba512", p512, c512, ref512, kw512, "psum"),
+                ("halo", p512, c512, None, halo_kw, "halo")):
+            run = r0[name]
+            res = _torch_tree(run["result"], device)
+            ref_b = ref if ref is not None else _torch_tree(
+                r0["ba512"]["result"], device)
+            parity = sharded_ba_parity(f"{tag}, {name}", prob, cam_b, res,
+                                       ref_b, bundle, mestimator)
+            step = r0[f"{name} step"]
+            K_b, O_b = prob.cam_R.shape[0], prob.meas_kf.shape[1]
+            model = sharded_ba.comm_bytes_per_lm_step(
+                K_b, step["n_global"], O_b,
+                solver="band_pcg" if mode == "halo" else kw["solver"],
+                cg_iters=step["cg_issued"], inner_iters=step["inner"],
+                assembly=kw.get("assembly", "band"),
+                band_halfwidth=kw["band_halfwidth"],
+                sigma_mode=kw.get("sigma_mode", "gather" if mode == "psum"
+                                  else "hist"), reduce_mode=mode)
+            ok, line = payload_line(step, model, sharded_ba.port_scalar_bytes(
+                step["inner"], mode))
+            check(ok, f"{tag}, {name}: {line}")
+            per_iter = run["ms"] / max(run["lm_iterations"], 1)
+            cg = (f", CG {run['cg_iterations'] / run['cg_solves']:.1f} "
+                  f"iterations per solve" if run["cg_solves"] else "")
+            legs[name] = dict(ms=run["ms"], ms_per_lm=per_iter,
+                              lm=run["lm_iterations"])
+            print(f"sharded {name} ({tag}): {run['ms']:.1f} ms for "
+                  f"{run['lm_iterations']} LM iterations = {per_iter:.3f} ms "
+                  f"each{cg}; {parity}; {line}; host copies "
+                  f"{run['host_copies']}  [{card}]")
+
+        # Leg 4: both re-finds.
+        meas, found, never = r0["refind"]["result"]
+        found_t = torch.as_tensor(found).to(device)
+        check(torch.equal(found_t, ref_found)
+              and torch.equal(torch.as_tensor(never).to(device), ref_never)
+              and torch.equal(torch.as_tensor(meas.valid).to(device),
+                              ref_map.meas.valid),
+              f"{tag}: sharded re-find differs from refind_in_keyframe "
+              f"({int(found.sum())} / {n_found} found)")
+        uv_err = float(torch.max(torch.abs(
+            torch.as_tensor(meas.uv).to(device) - ref_map.meas.uv)[found_t]))
+        sf, spz, slv, ssp = (torch.as_tensor(x).to(device)
+                             for x in r0["scalable"]["result"])
+        s_meas = mapmaker.add_measurements_batch(
+            sm2.meas, sf, 1, spz, slv, mapmaker.SRC_REFIND, ssp)
+        check(torch.equal(sf, ref_found)
+              and torch.equal(s_meas.valid, ref_map.meas.valid),
+              f"{tag}: scalable re-find differs ({int(sf.sum())} / "
+              f"{n_found} found)")
+        uv_err = max(uv_err, float(torch.max(torch.abs(
+            s_meas.uv - ref_map.meas.uv)[sf])))
+        check(uv_err <= SHARDED_UV_ATOL,
+              f"{tag}: re-found uv differ by {uv_err}")
+        print(f"sharded re-find ({tag}): {n_found} of "
+              f"{int(sm2.points.valid.sum())} points found in keyframe 1 by "
+              f"both sharded forms and refind_in_keyframe (and "
+              f"refind_in_keyframes_batched), max uv diff {uv_err:.2e}; "
+              f"{r0['refind']['ms']:.1f} / {r0['scalable']['ms']:.1f} ms; "
+              f"payload {r0['refind']['sites']} / "
+              f"{r0['scalable']['sites']}  [{card}]")
+
+        # Leg 5: the epipolar search at levels 0-2.
+        counts = []
+        for lvl in SHARDED_EPI_LEVELS:
+            res = _torch_tree(r0[f"epipolar {lvl}"]["result"], device)
+            ref = epi_ref[lvl]
+            s = ref.success
+            check(torch.equal(res.success, s),
+                  f"{tag}: epipolar success differs at level {lvl} "
+                  f"({int(res.success.sum())} / {int(s.sum())})")
+            err = max(float(torch.max(torch.abs(res.pos_w - ref.pos_w)[s]))
+                      if bool(s.any()) else 0.0,
+                      float(torch.max(torch.abs(res.target_uv
+                                                - ref.target_uv)[s]))
+                      if bool(s.any()) else 0.0)
+            check(err <= SHARDED_EPI_ATOL,
+                  f"{tag}: epipolar level {lvl} differs by {err}")
+            counts.append((lvl, int(s.sum()), int(ref.success.shape[0]),
+                           err, r0[f"epipolar {lvl}"]["ms"]))
+        check(sum(c[1] for c in counts) >= 32,
+              f"{tag}: the epipolar legs found {counts}")
+        print(f"sharded epipolar search ({tag}): " + "; ".join(
+            f"level {lvl} {n} of {c} candidates succeed, max diff "
+            f"{e:.2e}, {ms:.1f} ms" for lvl, n, c, e, ms in counts)
+            + f"  [{card}]")
+
+        # Leg 6: replicated tracking.
+        state_r, outs = r0["streams"]["result"]
+        worst = 0.0
+        for k, (o, ref) in enumerate(zip(outs, stream_ref)):
+            check(np.array_equal(o.n_found, ref.n_found.cpu().numpy())
+                  and np.array_equal(o.quality, ref.quality.cpu().numpy()),
+                  f"{tag}: step {k}: n_found {o.n_found.tolist()} / "
+                  f"{ref.n_found.tolist()}, quality {o.quality.tolist()} / "
+                  f"{ref.quality.tolist()}")
+            worst = max(worst,
+                        float(np.max(np.abs(o.R - ref.R.cpu().numpy()))),
+                        float(np.max(np.abs(o.t - ref.t.cpu().numpy()))))
+        check(worst <= STREAM_SINGLE_ATOL,
+              f"{tag}: streams differ from stream_step by {worst}")
+        for r in rs:
+            check(r["streams"]["launches"] == {
+                "fast_detect": 0, "fast_detect_levels": steps,
+                "fast_nonmax_levels": 0},
+                f"{tag}: a rank's FAST launches over {steps} steps: "
+                f"{r['streams']['launches']}, expected one per step")
+        ms = r0["streams"]["ms"]
+        print(f"sharded streams ({tag}): {STREAMS} streams, {STREAMS // D} "
+              f"a rank, {steps} steps in {ms:.1f} ms ({ms / steps:.3f} ms a "
+              f"step, {STREAMS * steps * 1e3 / ms:.3f} frames/s aggregate); "
+              f"max pose diff from stream_step {worst:.2e}, n_found and "
+              f"quality equal; one FAST launch per rank per step; payload "
+              f"{r0['streams']['sites']}, host copies "
+              f"{r0['streams']['host_copies']}  [{card}]")
+        for n in SHARDED_PROBE_FLOATS:
+            ms = r0[f"collectives {n}"]
+            print(f"sharded collectives ({tag}), {4 * n} bytes a rank, "
+                  f"median ms per call (the shape check and host copies "
+                  f"included): " + ", ".join(f"{k} {v:.4f}"
+                                             for k, v in ms.items())
+                  + f"  [{card}]")
+            legs[f"collectives {4 * n} B"] = ms
+        figures[D] = legs
+    print(f"phase 17 took {time.perf_counter() - t_phase:.1f} s (inputs and "
+          f"references {t_in:.1f} s before the ranks)")
+    return parent_launches, rank_launches, figures
+
+
 def replay_keyframe(args, device, fstep, slam, bundle):
     """integrate_keyframe on a copy of its inputs, the four growth levels,
     one refind_newly and one local bundle adjustment round (the facade's
@@ -2847,6 +3254,12 @@ def main():
     stream_launches, skern = phase_streams(
         device, card, fast, replicated_tracking, sbi_ops, kf_mod, tracker,
         image, sm, cam, config, frames, poses, statistics.median(fps))
+
+    # ---- 17. the multi-device paths on phase 4's map and frames ----
+    sharded_launches, sharded_rank_launches, _ = phase_sharded(
+        device, card, config, sm, cam, scene, frames, poses, fast, bundle,
+        mapmaker, kf_mod, replicated_tracking, sbi_ops, fixtures, cam_ops,
+        synthetic, lie, mestimator)
     del frames, sm
 
     # ---- 7. the stereo bootstrap, then tracking on its map ----
@@ -2921,7 +3334,9 @@ def main():
                "ba_full_size": ba_launches, "slam": slam_launches,
                "large_map": large_launches, "run_slam": cli_launches,
                "streams": stream_launches, "ba_512": ba512_launches,
-               "drift": drift_launches, "photo": photo_launches}
+               "drift": drift_launches, "photo": photo_launches,
+               "sharded": sharded_launches,
+               "sharded_ranks": sharded_rank_launches}
 
     def row(name, paths=tuple(by_path), counter=None, **measured):
         counts = {p: by_path[p][counter or name] for p in paths}
@@ -2942,7 +3357,7 @@ def main():
             differ_from_unfused=nm["differ_from_unfused"],
             near_tie_pixels=nm["near_tie_pixels"], ms=nm["ms"],
             plain_ms=nm["plain_ms"], bound_ms=nm_bound, bound_by=nm_by),
-        row("fast_detect_levels_streams", paths=("streams",),
+        row("fast_detect_levels_streams", paths=("streams", "sharded_ranks"),
             counter="fast_detect_levels", max_abs_err=skern["max_abs_err"],
             ms=skern["ms"], plain_ms=skern["plain_ms"],
             bound_ms=skern["bound_ms"], bound_by=skern["bound_by"],
@@ -2952,7 +3367,9 @@ def main():
             note=f"fast_levels_kernel with the stream in its grid: "
                  f"{STREAMS} frames x 4 levels in one launch "
                  f"(ops/fast.detect_levels_streams, make_frames); its "
-                 f"launches are counted under fast_detect_levels"),
+                 f"launches are counted under fast_detect_levels; "
+                 f"sharded_ranks: replicated_step_fn's launches, one per "
+                 f"rank per step, summed over phase 17's ranks"),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

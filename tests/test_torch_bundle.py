@@ -548,20 +548,39 @@ def test_ba_points_without_measurements_and_failed_solves(noisy):
     np.testing.assert_array_equal(res.points.numpy(), prob.points)
 
 
-@pytest.mark.parametrize("kwargs,item", [
-    (dict(solver="pcg", reduce_mode="halo"), 5),
-    (dict(solver="band_pcg", reduce_mode="halo"), 5),
-    (dict(assembly="band", axis_name="points"), 5),
-    (dict(sigma_mode="hist", axis_name="points"), 5),
-    (dict(reduce_mode="halo"), 5), (dict(axis_name="points"), 5),
+def _one_rank_mesh():
+    """A Mesh of one rank on the CPU (no process group: the mode checks
+    raise before any collective)."""
+    from visualslam_android_tpu_torch.parallel import mesh as tmesh
+
+    return tmesh.Mesh(rank=0, size=1, device=torch.device("cpu"),
+                      transport="host")
+
+
+@pytest.mark.parametrize("kwargs,error", [
+    (dict(solver="pcg", reduce_mode="halo", shard_rows=4), ValueError),
+    (dict(solver="band_pcg", reduce_mode="halo"), ValueError),
+    (dict(assembly="band", axis_name="points"), TypeError),
+    (dict(sigma_mode="hist", axis_name="points"), TypeError),
+    (dict(solver="band_pcg", reduce_mode="halo", shard_rows=4), ValueError),
+    (dict(axis_name="points"), TypeError),
+    (dict(solver="chol", reduce_mode="halo", shard_rows=4, mesh=True),
+     ValueError),
+    (dict(solver="band_pcg", reduce_mode="halo", mesh=True), ValueError),
 ])
-def test_unported_modes_raise(noisy, kwargs, item):
-    """The JAX package's multi-device modes raise NotImplementedError
-    naming their ROADMAP item, also beside the band and CG solvers; no other
-    mode runs in their place. An unknown name is a ValueError."""
+def test_unported_modes_raise(noisy, kwargs, error):
+    """The multi-device modes refuse what the JAX package refuses
+    (bundle.py:513-518 there): reduce_mode "halo" without a mesh, without
+    shard_rows or beside another solver than band_pcg is a ValueError, and
+    axis_name must be a parallel.mesh.Mesh, not the JAX package's bare
+    axis string (a TypeError). An unknown name is a ValueError. Nothing
+    runs: no host read is made."""
     _, _, tp, t_cam = _both(noisy["prob"], noisy["cam"])
+    kwargs = dict(kwargs)
+    if kwargs.pop("mesh", False):
+        kwargs["axis_name"] = _one_rank_mesh()
     tb.HOST_READS["bundle_adjust"] = 0
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
+    with pytest.raises(error):
         tb.bundle_adjust(tp, t_cam, max_iters=1, **kwargs)
     with pytest.raises(ValueError):
         tb.bundle_adjust(tp, t_cam, max_iters=1, solver="lu")

@@ -290,10 +290,15 @@ def test_sbi(case):
 def test_constructors_build_on_the_card_unless_told():
     """Every state constructor takes device=None and resolves it to the
     CUDA card; without one it raises and says to pass device="cpu". It
-    never carries on on the CPU unasked. device="cpu" builds there."""
+    never carries on on the CPU unasked. device="cpu" builds there. The
+    multi-device entry points (parallel/mesh.init_mesh, run_ranks) put
+    their ranks on the card the same way, and raise before any process
+    group or rank starts."""
     import inspect
 
     from visualslam_android_tpu_torch.models import map_store as tms
+    from visualslam_android_tpu_torch.parallel import mesh as tmesh
+    from visualslam_android_tpu_torch.parallel import rank_programs
     from visualslam_android_tpu_torch.parallel import replicated_tracking
     from visualslam_android_tpu_torch.utils import convert
     from visualslam_android_tpu_torch.utils import fixtures as tfix
@@ -318,14 +323,19 @@ def test_constructors_build_on_the_card_unless_told():
         lambda **kw: tfix.build_band_ba_map(rng, n_kf=4, n_pts=8, **kw),
         lambda **kw: tsyn.random_structure(rng, 4, **kw),
         lambda **kw: tsyn.make_photo_scene(tile=1, **kw),
+        lambda **kw: tmesh.init_mesh("gloo", 0, 1, "file:///nonexistent",
+                                     "host", **kw),
+        lambda **kw: tmesh.run_ranks(rank_programs.run_cases, 1, "gloo",
+                                     "host", args=([],), **kw),
     ]
     functions = [tms.empty_map, tcam.make_camera, timg.patch_grid,
                  tsyn.look_at_pose, tsyn.make_planar_scene,
                  tfix.build_fixed_map, replicated_tracking.init_streams,
                  tlie.se3_identity, tfix.build_band_ba_map,
-                 tsyn.random_structure, tsyn.make_photo_scene] + [
+                 tsyn.random_structure, tsyn.make_photo_scene,
+                 tmesh.init_mesh, tmesh.run_ranks] + [
         getattr(convert, n) for n in dir(convert) if n.endswith("_from_numpy")]
-    assert len(functions) == 11 + 11
+    assert len(functions) == 13 + 11
     for fn in functions:
         assert inspect.signature(fn).parameters["device"].default is None, fn
     if torch.cuda.is_available():

@@ -134,9 +134,28 @@ def test_find_sigma_squared_hist_is_near_the_exact_median():
     assert abs(float(hist) / float(exact) - 1.0) < 0.076
 
 
-def test_find_sigma_squared_hist_over_a_mesh_axis_raises():
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tme.find_sigma_squared_hist(torch.ones(8), axis_name="points")
+def test_find_sigma_squared_hist_over_a_mesh_axis_raises(tmp_path):
+    """Over a mesh the axis is a parallel.mesh.Mesh: the JAX package's bare
+    axis string raises. On a one-rank gloo mesh the psum of the histogram
+    leaves the unsharded sigma as it is (the D = 2 and 4 cases are in
+    tests/test_torch_sharded.py)."""
+    import torch.distributed as dist
+
+    from visualslam_android_tpu_torch.parallel import mesh as tmesh
+
+    err = torch.linspace(0.01, 40.0, 64)
+    with pytest.raises(TypeError, match="Mesh"):
+        tme.find_sigma_squared_hist(err, axis_name="points")
+    mesh = tmesh.init_mesh("gloo", 0, 1, f"file://{tmp_path}/rendezvous",
+                           "host", device="cpu", timeout=30)
+    try:
+        for est in (tme.TUKEY, tme.LEAST_SQUARES):
+            assert torch.equal(
+                tme.find_sigma_squared_hist(err, estimator=est,
+                                            axis_name=mesh),
+                tme.find_sigma_squared_hist(err, estimator=est))
+    finally:
+        dist.destroy_process_group()
 
 
 # ------------------------------------------------------- band BA map

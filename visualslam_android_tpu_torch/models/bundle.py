@@ -21,7 +21,8 @@ jni/Bundle.{h,cc}; Hartley & Zisserman MVG Algorithm A6.4):
   its LM step and reported (Bundle.cc:516-531, :620-640).
 
 Measurements live in a point-major [N, O] table; U and eps_a are
-``index_add_`` sums over it. The Schur correction is assembled from each
+scatter sums over it (``_scatter_sum``: in a fixed order on the card too,
+so a run repeats itself bit for bit). The Schur correction is assembled from each
 point's O x O camera-pair blocks, added by a flat pair index into the
 dense S (``_schur_blocks_scatter``) or into its block band
 (``_schur_blocks_band``: [K, 2P+1, 6, 6], every pair at most P keyframe
@@ -30,15 +31,28 @@ slots apart). Solvers:
 - "chol": the dense [6K, 6K] system by a Cholesky factorization (from
   either assembly; the band is spread back to dense);
 - "pcg": block-Jacobi preconditioned conjugate gradients that never form
-  S (each product is a gather by camera, two small contractions and an
-  ``index_add_`` over the measurement table);
+  S (each product is a gather by camera, two small contractions and a
+  scatter sum over the measurement table);
 - "band_pcg": the same iteration on the block band.
 
 The JAX package's one-hot contractions ("onehot") name the same sums and
 run the scatter form here. The robust sigma is the exact masked median
-("gather") or the log2-histogram median ("hist", its multi-device form run
-on one device). The multi-device reductions (a mesh axis, the halo
-reduction) are not ported: their names raise NotImplementedError.
+("gather") or the log2-histogram median ("hist").
+
+Over a mesh (``axis_name``, a ``parallel.mesh.Mesh``; the JAX package's
+``shard_map`` axis) each rank holds a shard of the points and their
+measurement rows, the cameras are replicated, and the camera-side sums go
+through the mesh's collectives (``parallel/sharded_ba.py`` lays out the
+shards): U and eps_a, the Schur correction (dense, band, or one [K, 6] per
+CG product), the error table of the "gather" sigma or the histogram of the
+"hist" one, and the objective and update sums. Every rank then solves the
+same replicated camera system and back-substitutes its own points.
+``reduce_mode="halo"`` (band_pcg, points packed by camera block,
+``shard_rows`` cameras per rank) replaces the band's and U's psums by one
+right-neighbour ppermute of the ``band_halfwidth``-row strip and a tiled
+all_gather of the owned rows, with only the upper half band sent. Every
+loop flag is computed from reduced, replicated values, so the ranks take
+the same branches.
 
 The two nested loops read the device once per inner iteration: three
 flags (objective rose, objective fell, update below the limit) in one
@@ -59,24 +73,26 @@ from visualslam_android_tpu_torch.ops import camera as cam_ops
 from visualslam_android_tpu_torch.ops import lie
 from visualslam_android_tpu_torch.ops import mestimator as me
 from visualslam_android_tpu_torch.ops import wls as wls_ops
+from visualslam_android_tpu_torch.parallel import mesh as mesh_mod
 from visualslam_android_tpu_torch.utils.tensors import TensorTree
 
 MIN_SIGMA_SQ = 0.16  # (0.4)^2, Bundle.cc:224
 
 # Device-to-host reads made by bundle_adjust's loop control: "bundle_adjust"
-# one per inner iteration, "cg" one per chunk of CG iterations. Callers set
-# them to 0 and read them, as with ops/fast.LAUNCHES.
-HOST_READS = {"bundle_adjust": 0, "cg": 0}
+# one per inner iteration, "cg" one per chunk of CG iterations, "halo_check"
+# one per run with reduce_mode "halo" (every measurement of the rank's
+# points in its camera rows). Callers set them to 0 and read them, as with
+# ops/fast.LAUNCHES.
+HOST_READS = {"bundle_adjust": 0, "cg": 0, "halo_check": 0}
 # CG solves run and the iterations they took (frozen ones not counted).
 CG_STATS = {"solves": 0, "iterations": 0}
 # CG iterations issued between two reads of the convergence flag.
 CG_CHUNK = 16
 
-# What bundle_adjust runs, and what waits: name -> ROADMAP queue 1 item.
-_ASSEMBLIES = {"scatter": None, "onehot": None, "band": None}
-_SOLVERS = {"chol": None, "pcg": None, "band_pcg": None}
-_SIGMA_MODES = {"gather": None, "hist": None}
-_REDUCE_MODES = {"psum": None, "halo": 5}
+_ASSEMBLIES = ("scatter", "onehot", "band")
+_SOLVERS = ("chol", "pcg", "band_pcg")
+_SIGMA_MODES = ("gather", "hist")
+_REDUCE_MODES = ("psum", "halo")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,6 +122,90 @@ class BAResult(TensorTree):
     accepted: torch.Tensor        # [] int32 accepted LM steps
     converged: torch.Tensor       # [] bool
     sigma_squared: torch.Tensor   # [] final robust sigma^2
+
+
+@dataclasses.dataclass(frozen=True)
+class _Comm:
+    """The cross-shard reductions of one bundle_adjust run; on one device
+    (mesh None) each is the identity. Sites name the items of
+    parallel/sharded_ba.comm_bytes_per_lm_step."""
+
+    mesh: object = None  # parallel.mesh.Mesh
+    halo: bool = False
+    rows: int = 0        # cameras per rank (halo)
+    band: int = 0        # halo strip rows (halo)
+
+    def sum(self, tensors, site):
+        """psum of a tuple of tensors of one dtype, in one collective."""
+        if self.mesh is None:
+            return tensors
+        flat = mesh_mod.psum(
+            self.mesh, torch.cat([x.reshape(-1) for x in tensors]), site=site)
+        out, i = [], 0
+        for x in tensors:
+            out.append(flat[i:i + x.numel()].view(x.shape))
+            i += x.numel()
+        return tuple(out)
+
+    def gather(self, x, site):
+        return x if self.mesh is None else mesh_mod.all_gather(
+            self.mesh, x, site=site)
+
+    def cam_rows(self, tensors, site):
+        """The sums over the ranks of camera-indexed tensors [K, ...]: one
+        psum, or with the halo reduction one strip ppermute and one tiled
+        all_gather of [K, F] with the tensors side by side."""
+        if not self.halo:
+            return self.sum(tensors, site)
+        K = tensors[0].shape[0]
+        flat = _halo_reduce_gather(
+            torch.cat([x.reshape(K, -1) for x in tensors], dim=1), self.mesh,
+            self.rows, self.band, site)
+        out, i = [], 0
+        for x in tensors:
+            n = x[0].numel()
+            out.append(flat[:, i:i + n].reshape(x.shape))
+            i += n
+        return tuple(out)
+
+
+_ONE_DEVICE = _Comm()
+
+
+def _halo_reduce_gather(x, mesh, rows: int, halo: int, site):
+    """The sum over the ranks of x [K, F] when each rank's contributions
+    lie in rows [k0, k1 + halo) of its own camera block [k0, k1) =
+    [r rows, (r + 1) rows) (points packed by their first observing camera,
+    sharded_ba.pack_problem_camblock): each rank sends the `halo` rows it
+    spills into its right neighbour's block (one ppermute), adds what its
+    left neighbour sent to its own first rows, and the owned rows are
+    all-gathered (JAX ``bundle.py:267-297``). Contributions outside those
+    rows would be lost: bundle_adjust checks first that there are none."""
+    D, K = mesh.size, x.shape[0]
+    if rows * D != K or halo > rows:
+        raise ValueError(
+            f"halo reduce needs K == rows*D and halo <= rows; got K={K}, "
+            f"rows={rows}, D={D}, halo={halo}")
+    idx = mesh_mod.axis_index(mesh)
+    start = min((idx + 1) * rows, K - halo)  # the last rank sends nothing
+    recv = mesh_mod.ppermute_right(mesh, x[start:start + halo],
+                                   site="halo_strip")
+    own = x[idx * rows:(idx + 1) * rows].clone()
+    own[:halo] += recv
+    return mesh_mod.all_gather(mesh, own, site=site)
+
+
+def _band_lower_from_upper(S_half, band: int):
+    """The full block band [K, 2*band+1, 6, 6] from its upper half S_half
+    [K, band+1, 6, 6] (offsets 0..band) by block symmetry S[i, i-d] =
+    S[i-d, i]^T, so only the half band is sent (JAX ``bundle.py:300``)."""
+    K = S_half.shape[0]
+    delta = band - torch.arange(band, device=S_half.device)  # band .. 1
+    src = torch.arange(K, device=S_half.device)[:, None] - delta[None, :]
+    vals = S_half[src.clamp(0, K - 1), delta[None, :].expand(K, band)]
+    vals = torch.where((src >= 0)[..., None, None], vals.transpose(-1, -2),
+                       0.0)
+    return torch.cat([vals, S_half], dim=1)
 
 
 def _project_all(cam, R, t, pts, prob: BAProblem):
@@ -147,14 +247,25 @@ def _jacobians(cam, pc, Rm, sqrt_w, sqrt_inv_noise, cam_fixed_m):
     return A, J @ Rm
 
 
+def _scatter_sum(out, index, src):
+    """out[index[m]] += src[m] along dim 0, in place (index int64 [M], src
+    [M, ...]). On a CUDA tensor index_add_ adds by atomics in no fixed
+    order, so two runs on the same inputs differ in the last bits and the
+    SLAM runs built on them part; index_put_(accumulate=True) sorts the
+    indices first and adds in a fixed order. On the CPU index_add_ adds in
+    order."""
+    if out.is_cuda:
+        return out.index_put_((index,), src, accumulate=True)
+    return out.index_add_(0, index, src)
+
+
 def _e_corr_scatter(meas_kf, Y, eps_b, K):
     """E_corr [K, 6] = sum over measurements of Y eps_b, added per camera.
     Y is zero for bad and fixed measurements (the weights are folded into
     A and B), so dead slots add zeros."""
     e = (Y @ eps_b[:, None, :, None])[..., 0]  # [N, O, 6]
-    return torch.zeros(K, 6, dtype=Y.dtype, device=Y.device).index_add_(
-        0, meas_kf.reshape(-1).long(), e.reshape(-1, 6)
-    )
+    return _scatter_sum(torch.zeros(K, 6, dtype=Y.dtype, device=Y.device),
+                        meas_kf.reshape(-1).long(), e.reshape(-1, 6))
 
 
 def _schur_blocks_scatter(meas_kf, Y, W, eps_b, K, block: int):
@@ -173,7 +284,7 @@ def _schur_blocks_scatter(meas_kf, Y, W, eps_b, K, block: int):
         # T[n, o, p] = Y[n, o] W[n, p]^T
         T = Y[sl, :, None] @ W[sl, None].transpose(-1, -2)
         flat = kf[sl, :, None] * K + kf[sl, None, :]  # ii * K + jj
-        pairs.index_add_(0, flat.reshape(-1), T.reshape(-1, 6, 6))
+        _scatter_sum(pairs, flat.reshape(-1), T.reshape(-1, 6, 6))
     return pairs.view(K, K, 6, 6).permute(0, 2, 1, 3), E_corr
 
 
@@ -182,7 +293,7 @@ def _schur_blocks_band(meas_kf, Y, W, eps_b, K, band: int, block: int):
     with S_band[i, d] the (i, i+d-band) camera-pair block, and E_corr
     [K, 6]. A pair further apart than `band` is dropped (the JAX package
     scatters it with mode="drop"): callers check max_pair_offset first.
-    Dropped pairs go to a dead row past the band, which index_add_ needs
+    Dropped pairs go to a dead row past the band, which the scatter needs
     in range. meas_kf must lie in [0, K)."""
     N, O = meas_kf.shape
     E_corr = _e_corr_scatter(meas_kf, Y, eps_b, K)
@@ -196,7 +307,7 @@ def _schur_blocks_band(meas_kf, Y, W, eps_b, K, band: int, block: int):
         ii, jj = kf[sl, :, None], kf[sl, None, :]
         dd = jj - ii + band
         flat = torch.where((dd >= 0) & (dd < width), ii * width + dd, dead)
-        out.index_add_(0, flat.reshape(-1), T.reshape(-1, 6, 6))
+        _scatter_sum(out, flat.reshape(-1), T.reshape(-1, 6, 6))
     return out[:dead].view(K, width, 6, 6), E_corr
 
 
@@ -215,7 +326,7 @@ def _band_to_dense(S_band, K, band: int):
     vals = torch.where(ok[..., None, None], S_band, 0.0)
     dense = torch.zeros(K * K, 6, 6, dtype=S_band.dtype,
                         device=S_band.device)
-    dense.index_add_(0, (ii * K + jj).reshape(-1), vals.reshape(-1, 6, 6))
+    _scatter_sum(dense, (ii * K + jj).reshape(-1), vals.reshape(-1, 6, 6))
     return dense.view(K, K, 6, 6).permute(0, 2, 1, 3)
 
 
@@ -277,11 +388,13 @@ def _block_jacobi(M, free):
 
 
 def _pcg_camera_solve(U_star, free, meas_kf, W, Vinv, b, cg_iters: int,
-                      cg_tol: float):
+                      cg_tol: float, comm: _Comm = _ONE_DEVICE):
     """Matrix-free block-Jacobi preconditioned CG on the reduced camera
     system S x = b, never forming S: one product is a gather of x by
-    measurement, two small contractions and an index_add_ by camera, O(N O)
-    whatever K. meas_kf must lie in [0, K)."""
+    measurement, two small contractions and a scatter sum by camera, O(N O)
+    whatever K. meas_kf must lie in [0, K). Over a mesh the scatter side
+    of each product is psummed, one [K, 6] per iteration, and the ranks
+    iterate in lockstep on the replicated x."""
     Y = W @ Vinv[:, None]                  # [N, O, 6, 3]
     Wt = W.transpose(-1, -2)               # [N, O, 3, 6]
     kf = meas_kf.long()
@@ -292,8 +405,9 @@ def _pcg_camera_solve(U_star, free, meas_kf, W, Vinv, b, cg_iters: int,
     def apply_S(x):
         u = torch.sum((Wt @ x[kf][..., None])[..., 0], dim=1)   # [N, 3]
         corr = (Y @ u[:, None, :, None])[..., 0]                 # [N, O, 6]
-        corr = torch.zeros_like(x).index_add_(0, kf_flat,
-                                              corr.reshape(-1, 6))
+        corr = _scatter_sum(torch.zeros_like(x), kf_flat,
+                            corr.reshape(-1, 6))
+        corr, = comm.sum((corr,), "solve")
         out = (U_star @ x[..., None])[..., 0] + 1e-9 * x - corr
         return torch.where(fr, out, x)
 
@@ -345,45 +459,77 @@ def max_pair_offset(meas_kf, meas_valid) -> int:
     return int(pair_offset_tensor(meas_kf, meas_valid))
 
 
-def _check_modes(axis_name, assembly, solver, sigma_mode, reduce_mode):
-    if axis_name is not None:
-        raise NotImplementedError(
-            "bundle_adjust over a mesh axis (axis_name) is not ported: "
-            "ROADMAP queue 1 item 5"
-        )
-    for kind, name, table in (("assembly", assembly, _ASSEMBLIES),
+def _check_modes(axis_name, assembly, solver, sigma_mode, reduce_mode,
+                 shard_rows, band: int) -> _Comm:
+    """The run's reductions, after checking its mode names (JAX
+    ``bundle.py:513-518`` for the halo's preconditions)."""
+    for kind, name, names in (("assembly", assembly, _ASSEMBLIES),
                               ("solver", solver, _SOLVERS),
                               ("sigma_mode", sigma_mode, _SIGMA_MODES),
                               ("reduce_mode", reduce_mode, _REDUCE_MODES)):
-        if name not in table:
+        if name not in names:
             raise ValueError(f"unknown {kind} {name!r}")
-        if table[name] is not None:
-            raise NotImplementedError(
-                f"{kind}={name!r} is not ported: ROADMAP queue 1 item "
-                f"{table[name]}"
-            )
+    if axis_name is not None and not isinstance(axis_name, mesh_mod.Mesh):
+        raise TypeError(
+            f"axis_name must be a parallel.mesh.Mesh (the ranks that hold "
+            f"the point shards), not {axis_name!r}")
+    halo = reduce_mode == "halo"
+    if halo and (axis_name is None or solver != "band_pcg"
+                 or shard_rows <= 0):
+        raise ValueError(
+            "reduce_mode='halo' requires axis_name, solver='band_pcg' and "
+            "shard_rows=K/D (camera-block-packed points)")
+    if axis_name is None:
+        return _ONE_DEVICE
+    return _Comm(mesh=axis_name, halo=halo, rows=shard_rows, band=band)
+
+
+def _check_halo_rows(prob: BAProblem, meas_valid, comm: _Comm):
+    """Every valid measurement of this rank's points must lie in its camera
+    rows [k0, k1 + band): the halo reduction drops anything else (the JAX
+    package does so silently, ROADMAP queue 3 c). One psum and one read,
+    so every rank raises together."""
+    k0 = mesh_mod.axis_index(comm.mesh) * comm.rows
+    kf = prob.meas_kf
+    outside = meas_valid & ((kf < k0) | (kf >= k0 + comm.rows + comm.band))
+    n_out, = comm.sum((torch.sum(outside).to(prob.points.dtype),), "scalars")
+    HOST_READS["halo_check"] += 1
+    n_out = int(n_out)
+    if n_out:
+        raise ValueError(
+            f"reduce_mode='halo': {n_out} measurements lie outside their "
+            f"rank's camera rows plus the {comm.band}-row halo; pack the "
+            f"points with parallel.sharded_ba.pack_problem_camblock")
 
 
 def _linearize(prob: BAProblem, cam, R, t, pts, meas_valid, cam_fixed_m,
-               min_sigma_sq, sigma_mode="gather"):
+               min_sigma_sq, sigma_mode="gather", comm: _Comm = _ONE_DEVICE):
     """The first half of an LM step (Bundle.cc:209-321) at (R, t, pts):
     robust sigma (exact median or, for sigma_mode "hist", the histogram
     median), the objective, the ejection mask and the accumulators.
-    Returns a dict of tensors."""
+    Over a mesh the sigma, the objective, U and eps_a are the sums over
+    every rank's shard. Returns a dict of tensors."""
     K = R.shape[0]
     dtype, device = pts.dtype, pts.device
     pc, err, err_sq, z_bad = _project_all(cam, R, t, pts, prob)
     ok = meas_valid & ~z_bad
-    find_sigma = (me.find_sigma_squared_hist if sigma_mode == "hist"
-                  else me.find_sigma_squared)
-    sigma_sq = find_sigma(err_sq.reshape(-1), ok.reshape(-1), me.TUKEY)
+    if sigma_mode == "hist":
+        sigma_sq = me.find_sigma_squared_hist(
+            err_sq.reshape(-1), ok.reshape(-1), me.TUKEY,
+            axis_name=comm.mesh)
+    else:
+        # The exact median needs every rank's error table.
+        sigma_sq = me.find_sigma_squared(
+            comm.gather(err_sq.reshape(-1), "sigma_gather"),
+            comm.gather(ok.reshape(-1), "sigma_gather"), me.TUKEY)
     sigma_sq = torch.clamp(sigma_sq, min=min_sigma_sq)
     sqrt_w = me.square_root_weight(err_sq, sigma_sq, me.TUKEY)
     bad = meas_valid & (z_bad | (sqrt_w == 0.0))
     good = meas_valid & ~bad
     n_bad = torch.sum(bad.to(dtype))
-    current_error = torch.sum(torch.where(
-        good, me.objective_score(err_sq, sigma_sq, me.TUKEY), 0.0)) + n_bad
+    current_error, = comm.sum((torch.sum(torch.where(
+        good, me.objective_score(err_sq, sigma_sq, me.TUKEY), 0.0)) + n_bad,),
+        "scalars")
 
     kf = prob.meas_kf.long()
     A, B = _jacobians(cam, pc, R[kf], torch.where(good, sqrt_w, 0.0),
@@ -395,10 +541,11 @@ def _linearize(prob: BAProblem, cam, R, t, pts, meas_valid, cam_fixed_m,
     At, Bt = A.transpose(-1, -2), B.transpose(-1, -2)
 
     kf_flat = kf.reshape(-1)
-    U = torch.zeros(K, 6, 6, dtype=dtype, device=device).index_add_(
-        0, kf_flat, (At @ A).reshape(-1, 6, 6))
-    eps_a = torch.zeros(K, 6, dtype=dtype, device=device).index_add_(
-        0, kf_flat, (At @ eps).reshape(-1, 6))
+    U = _scatter_sum(torch.zeros(K, 6, 6, dtype=dtype, device=device),
+                     kf_flat, (At @ A).reshape(-1, 6, 6))
+    eps_a = _scatter_sum(torch.zeros(K, 6, dtype=dtype, device=device),
+                         kf_flat, (At @ eps).reshape(-1, 6))
+    U, eps_a = comm.cam_rows((U, eps_a), "u_eps")
     return dict(
         A=A, B=B, eps=eps[..., 0], U=U, eps_a=eps_a,
         V=torch.sum(Bt @ B, dim=1),            # [N, 3, 3]
@@ -426,7 +573,8 @@ def _damped(lin, prob: BAProblem, lam):
 
 
 def _reduced_system(lin, prob: BAProblem, lam, point_block,
-                    assembly: str = "scatter", band: int = 16):
+                    assembly: str = "scatter", band: int = 16,
+                    comm: _Comm = _ONE_DEVICE):
     """S [6K, 6K] and E [K, 6] of the reduced camera system at damping
     `lam` (Bundle.cc:327-434), with the inverse point blocks Vinv
     [N, 3, 3] the back-substitution needs. assembly "band" sums the block
@@ -439,10 +587,12 @@ def _reduced_system(lin, prob: BAProblem, lam, point_block,
         S_band, E_corr = _schur_blocks_band(prob.meas_kf, Y, lin["W"],
                                             lin["eps_b"], K, band,
                                             point_block)
+        S_band, E_corr = comm.sum((S_band, E_corr), "solve")
         S_corr = _band_to_dense(S_band, K, band)
     else:
         S_corr, E_corr = _schur_blocks_scatter(prob.meas_kf, Y, lin["W"],
                                                lin["eps_b"], K, point_block)
+        S_corr, E_corr = comm.sum((S_corr, E_corr), "solve")
     kk = torch.arange(K, device=device)
     S = -S_corr
     S[kk, :, kk, :] += U_star
@@ -457,21 +607,31 @@ def _reduced_system(lin, prob: BAProblem, lam, point_block,
 
 
 def _cg_camera_update(lin, prob: BAProblem, lam, point_block, solver: str,
-                      band: int, cg_iters: int, cg_tol: float):
+                      band: int, cg_iters: int, cg_tol: float,
+                      comm: _Comm = _ONE_DEVICE):
     """(camera update [K, 6], Vinv, free) of the inner iteration at `lam`
     by the CG solvers: "pcg" never forms S, "band_pcg" sums its block
-    band first."""
+    band first (over a mesh: one psum of the band, or with the halo
+    reduction the upper half band through _halo_reduce_gather, then CG on
+    the replicated band with no collective)."""
     K = prob.cam_R.shape[0]
     Vinv, Y, U_star, free = _damped(lin, prob, lam)
     if solver == "pcg":
-        E_corr = _e_corr_scatter(prob.meas_kf, Y, lin["eps_b"], K)
+        E_corr, = comm.sum(
+            (_e_corr_scatter(prob.meas_kf, Y, lin["eps_b"], K),), "solve")
         E = torch.where(free[:, None], lin["eps_a"] - E_corr, 0.0)
         upd = _pcg_camera_solve(U_star, free, prob.meas_kf, lin["W"], Vinv,
-                                E, cg_iters, cg_tol)
+                                E, cg_iters, cg_tol, comm)
     else:
         S_band, E_corr = _schur_blocks_band(prob.meas_kf, Y, lin["W"],
                                             lin["eps_b"], K, band,
                                             point_block)
+        if comm.halo:
+            S_half, E_corr = comm.cam_rows((S_band[:, band:], E_corr),
+                                           "solve")
+            S_band = _band_lower_from_upper(S_half, band)
+        else:
+            S_band, E_corr = comm.sum((S_band, E_corr), "solve")
         E = torch.where(free[:, None], lin["eps_a"] - E_corr, 0.0)
         upd = _band_pcg_solve(U_star, S_band, free, band, E, cg_iters,
                               cg_tol)
@@ -479,17 +639,19 @@ def _cg_camera_update(lin, prob: BAProblem, lam, point_block, solver: str,
 
 
 def _back_substitute(lin, prob: BAProblem, cam, R, t, pts, cam_upd, Vinv,
-                     free, update_conv):
+                     free, update_conv, comm: _Comm = _ONE_DEVICE):
     """The second half of an inner iteration (Bundle.cc:440-514): point
     updates from the camera update, the new state, its objective at the
     same sigma. Returns a dict of tensors, `flags` among them: [objective
-    rose, objective fell, update below the limit]."""
+    rose, objective fell, update below the limit]. Over a mesh the point
+    update norm and the objective are summed over the ranks in one psum,
+    so every rank reads the same flags."""
     kf = prob.meas_kf.long()
     wtd = (lin["W"].transpose(-1, -2) @ cam_upd[kf][..., None])[..., 0]
     v3 = lin["eps_b"] - torch.sum(wtd, dim=1)
     pt_upd = (Vinv @ v3[..., None])[..., 0]
     pt_upd = torch.where(prob.point_valid[:, None], pt_upd, 0.0)
-    upd_sq = torch.sum(cam_upd * cam_upd) + torch.sum(pt_upd * pt_upd)
+    pt_sq = torch.sum(pt_upd * pt_upd)
 
     dR, dt = lie.se3_exp(cam_upd)
     R_new, t_new = lie.se3_mul(dR, dt, R, t)
@@ -507,6 +669,8 @@ def _back_substitute(lin, prob: BAProblem, cam, R, t, pts, cam_upd, Vinv,
             me.objective_score(err_sq_new, lin["sigma_sq"], me.TUKEY), 0.0))
         + torch.sum((good & z_bad_new).to(pts.dtype)) + lin["n_bad"]
     )
+    pt_sq, new_error = comm.sum((pt_sq, new_error), "scalars")
+    upd_sq = torch.sum(cam_upd * cam_upd) + pt_sq
     cur = lin["current_error"]
     flags = torch.stack([new_error > cur, new_error < cur,
                          upd_sq < update_conv])
@@ -517,7 +681,7 @@ def _back_substitute(lin, prob: BAProblem, cam, R, t, pts, cam_upd, Vinv,
 def _solve_and_step(lin, prob: BAProblem, cam, R, t, pts, lam, point_block,
                     update_conv, assembly: str = "scatter",
                     solver: str = "chol", band: int = 16, cg_iters: int = 250,
-                    cg_tol: float = 1e-6):
+                    cg_tol: float = 1e-6, comm: _Comm = _ONE_DEVICE):
     """One inner iteration (Bundle.cc:327-514) at damping `lam`: solve the
     reduced system for the camera update, then _back_substitute. With
     solver "chol" the result also carries the system (S, E)."""
@@ -525,7 +689,7 @@ def _solve_and_step(lin, prob: BAProblem, cam, R, t, pts, lam, point_block,
     extra = {}
     if solver == "chol":
         Sm, E, Vinv, free = _reduced_system(lin, prob, lam, point_block,
-                                            assembly, band)
+                                            assembly, band, comm)
         # ridge=0: the reduced system already carries it. A factorization
         # that fails gives a NaN update, hence a NaN objective and a
         # rejected step.
@@ -534,17 +698,17 @@ def _solve_and_step(lin, prob: BAProblem, cam, R, t, pts, lam, point_block,
         extra = dict(S=Sm, E=E)
     else:
         cam_upd, Vinv, free = _cg_camera_update(
-            lin, prob, lam, point_block, solver, band, cg_iters, cg_tol)
+            lin, prob, lam, point_block, solver, band, cg_iters, cg_tol, comm)
     step = _back_substitute(lin, prob, cam, R, t, pts, cam_upd, Vinv, free,
-                            update_conv)
+                            update_conv, comm)
     return dict(step, **extra)
 
 
 def _sanitized(prob: BAProblem):
     """(problem with meas_kf clamped into [0, K), measurement mask): a
     measurement counts only if it is valid, its point is, and its camera
-    index names a slot. Dead slots may hold any index; index_add_ may
-    not see it."""
+    index names a slot. Dead slots may hold any index; the scatter sums
+    may not see it."""
     K = prob.cam_R.shape[0]
     in_range = (prob.meas_kf >= 0) & (prob.meas_kf < K)
     meas_valid = prob.meas_valid & prob.point_valid[:, None] & in_range
@@ -566,23 +730,33 @@ def bundle_adjust(
     reduce_mode: str = "psum",
     shard_rows: int = 0,
 ) -> BAResult:
-    """Full Bundle::Compute (Bundle.cc:136-178) on one device. max_iters
-    bounds the TOTAL of inner iterations (the reference's
-    mgvnMaxIterations); run it again with a small budget to go on.
+    """Full Bundle::Compute (Bundle.cc:136-178). max_iters bounds the TOTAL
+    of inner iterations (the reference's mgvnMaxIterations); run it again
+    with a small budget to go on.
 
-    The arguments are the JAX package's. Ported: assembly "scatter"
-    ("onehot" names the same sums and runs the scatter form) and "band"
-    (every co-observing pair within band_halfwidth slots: callers check
+    The arguments are the JAX package's: assembly "scatter" ("onehot"
+    names the same sums and runs the scatter form) and "band" (every
+    co-observing pair within band_halfwidth slots: callers check
     max_pair_offset, pairs further apart are dropped); solver "chol",
     "pcg" (the assembly is not read: S is never formed) and "band_pcg"
     (block band of band_halfwidth), the CG solvers bounded by cg_iters and
-    cg_tol; sigma_mode "gather" or "hist", reduce_mode "psum", without a
-    mesh axis.
-    The other names the JAX package knows raise NotImplementedError;
-    shard_rows belongs to those and is not read."""
-    _check_modes(axis_name, assembly, solver, sigma_mode, reduce_mode)
+    cg_tol; sigma_mode "gather" or "hist".
+
+    axis_name: None on one device, or the parallel.mesh.Mesh whose ranks
+    each run this call on their shard of the points (the measurement rows
+    with them) and the same cameras (parallel/sharded_ba.py); the
+    point-side outputs are then the shard's, the rest replicated.
+    reduce_mode "psum" sums the camera-side arrays over the ranks;
+    "halo" (band_pcg only, shard_rows = K / D cameras per rank, points
+    packed by sharded_ba.pack_problem_camblock) reduces them through
+    _halo_reduce_gather, and raises if a measurement lies outside its
+    rank's camera rows plus band_halfwidth."""
+    comm = _check_modes(axis_name, assembly, solver, sigma_mode, reduce_mode,
+                        shard_rows, band_halfwidth)
     dtype, device = prob.points.dtype, prob.points.device
     prob, meas_valid = _sanitized(prob)
+    if comm.halo:
+        _check_halo_rows(prob, meas_valid, comm)
     cam_fixed_m = prob.cam_fixed[prob.meas_kf.long()]
 
     R, t, pts = prob.cam_R, prob.cam_t, prob.points
@@ -595,13 +769,14 @@ def bundle_adjust(
 
     while not converged and counter < max_iters:
         lin = _linearize(prob, cam, R, t, pts, meas_valid, cam_fixed_m,
-                         min_sigma_sq, sigma_mode)
+                         min_sigma_sq, sigma_mode, comm)
         # Inner lambda loop: raise the damping until the objective falls,
         # the update converges or the budget ends.
         while True:
             step = _solve_and_step(lin, prob, cam, R, t, pts, lam,
                                    point_block, update_conv, assembly,
-                                   solver, band_halfwidth, cg_iters, cg_tol)
+                                   solver, band_halfwidth, cg_iters, cg_tol,
+                                   comm)
             HOST_READS["bundle_adjust"] += 1
             worse, better, conv = step["flags"].tolist()
             converged_dev = converged_dev | step["flags"][2]

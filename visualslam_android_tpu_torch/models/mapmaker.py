@@ -9,8 +9,9 @@ insertion, ThinCandidates (:393-422), the batched epipolar search
 global map transforms (:440-467), CalcPlaneAligner (:1104-1231) and the
 bundle-adjustment glue (:776-960: problem construction, the local adjust
 set, write-back with outlier routing) and ReFind (:967-1095: over an
-explicit (point, keyframe) pair list, and over all points in one
-keyframe).
+explicit (point, keyframe) pair list, over all points in one keyframe,
+the one-keyframe search core a point shard runs, and the all-keyframes
+oracle).
 
 Functions here return new stores and leave their inputs as they were,
 except where a docstring says IN PLACE.
@@ -471,50 +472,121 @@ def insert_new_points(slam_map: SLAMMap, cam, res: EpipolarResult,
 # ---------------------------------------------------------------------------
 
 
-def refind_pairs(slam_map: SLAMMap, pair_pt, pair_kf, pair_ok, cam,
-                 config: SLAMConfig):
-    """ReFind_Common over an explicit (point, keyframe) pair list [Q]:
-    project point pair_pt[q] into keyframe pair_kf[q], warp its template
-    from its source keyframe, coarse-search radius 4 (MapMaker.cc:1014)
-    against that keyframe's level image, subpixel (8 iterations, :1022)
-    when the search level is above 0. The reference keeps a measurement
-    whose subpixel step does not converge (:1028), at the coarse position.
-    Returns (found, pos_zero, search_level, did_subpix), each [Q]."""
-    pts, kfs = slam_map.points, slam_map.keyframes
+def _refind_geometry(cam, R, t, pos_w, right_w, down_w, config: SLAMConfig):
+    """The points at poses (R, t) (one pose [3, 3] / [3] or one per point):
+    (px [Q, 2] level-0 projection, warp_inv [Q, 2, 2], search_level [Q],
+    ok [Q]: projects into the image and has a usable warp)."""
     tc, pc_cfg = config.tracker, config.patch
-    hp = pc_cfg.half_patch_size
-    pt, kf = pair_pt.long(), pair_kf.long()
-
-    R, t = kfs.R[kf], kfs.t[kf]  # [Q, 3, 3], [Q, 3]
+    Q = pos_w.shape[0]
+    # One pose is spread over the points, so the products are the
+    # per-pair form's.
+    R, t = R.expand(Q, 3, 3).contiguous(), t.expand(Q, 3).contiguous()
     pc, px, derivs, proj_ok = tracker_mod.project_camera_points(
-        cam, (R @ pts.pos_w[pt][..., None])[..., 0] + t,
+        cam, (R @ pos_w[..., None])[..., 0] + t,
         (float(tc.width), float(tc.height)))
-    motion_right = (R @ pts.pixel_right_w[pt][..., None])[..., 0]
-    motion_down = (R @ pts.pixel_down_w[pt][..., None])[..., 0]
+    motion_right = (R @ right_w[..., None])[..., 0]
+    motion_down = (R @ down_w[..., None])[..., 0]
     warp_inv, search_level, warp_ok = match.calc_search_level_and_warp(
         pc, motion_right, motion_down, derivs,
         det_lo=pc_cfg.warp_det_lo, det_hi=pc_cfg.warp_det_hi,
     )
-    tmpl = match.make_templates_warped_multilevel(
-        kfs.pyramid, pts.source_kf[pt], pts.source_level[pt], pts.center[pt],
-        warp_inv, search_level, hp,
-    )
-    active = pair_ok & proj_ok & warp_ok & ~tmpl.bad
+    return px, warp_inv, search_level, proj_ok & warp_ok
 
+
+def _refind_match(pyramid, corner_mask, tmpl, px, search_level, active,
+                  config: SLAMConfig, kf_idx=None):
+    """Coarse search radius 4 (MapMaker.cc:1014) against the level images,
+    subpixel (8 iterations, :1022) when the search level is above 0; the
+    reference keeps a measurement whose subpixel step does not converge
+    (:1028), at the coarse position. pyramid / corner_mask: one frame's
+    levels, or keyframe stacks with kf_idx [Q]. Returns (found, pos_zero,
+    did_subpix)."""
+    hp, pc_cfg = config.patch.half_patch_size, config.patch
     res = match.find_patch_coarse_multilevel(
-        kfs.pyramid, kfs.corner_mask, tmpl, px, search_level,
+        pyramid, corner_mask, tmpl, px, search_level,
         torch.full_like(px[:, 0], 4.0), active, max_range=4, half_patch=hp,
-        kf_idx=kf,
+        kf_idx=kf_idx,
     )
     found = res.found & active
     pos_zero = torch.where(found[:, None], res.pos_level, px)
     sub_sel = found & (search_level > 0)
     sp = match.iterate_subpix_multilevel(
-        kfs.pyramid, tmpl, pos_zero, search_level, sub_sel, max_iters=8,
-        half_patch=hp, conv_limit=pc_cfg.subpix_converged, kf_idx=kf,
+        pyramid, tmpl, pos_zero, search_level, sub_sel, max_iters=8,
+        half_patch=hp, conv_limit=pc_cfg.subpix_converged, kf_idx=kf_idx,
     )
     pos_zero = torch.where((sub_sel & sp.converged)[:, None], sp.pos_zero,
                            pos_zero)
+    return found, pos_zero, sub_sel
+
+
+def refind_templates(pyramid, source_kf, source_level, center, warp_inv,
+                     search_level, config: SLAMConfig):
+    """The first half of ReFind_Common: the points' warped templates from
+    their source keyframes (pyramid: the keyframe stacks) for the warps
+    _refind_geometry gives at the target pose."""
+    return match.make_templates_warped_multilevel(
+        pyramid, source_kf, source_level, center, warp_inv, search_level,
+        config.patch.half_patch_size,
+    )
+
+
+def _refind_search_core(pts, tmpl, R, t, target_pyramid, target_corner_mask,
+                        cam, active, config: SLAMConfig):
+    """The search half of ReFind_Common against ONE target keyframe (JAX
+    ``mapmaker.py:578-660``): the points of `pts` (a point-major store,
+    maybe a shard) projected at its pose (R [3, 3], t [3]), their ready
+    warped templates `tmpl` matched in its pyramid and corner masks (one
+    frame's levels) as refind_pairs matches them. Every input is
+    per-point or of one frame, so the core runs on a point shard without
+    the keyframe store. Returns (found, pos_zero, search_level, did_subpix),
+    each [N]."""
+    px, _, search_level, ok = _refind_geometry(
+        cam, R, t, pts.pos_w, pts.pixel_right_w, pts.pixel_down_w, config)
+    active = active & ok & ~tmpl.bad
+    found, pos_zero, did_subpix = _refind_match(
+        target_pyramid, target_corner_mask, tmpl, px, search_level, active,
+        config)
+    return found, pos_zero, search_level, did_subpix
+
+
+def _refind_search(slam_map: SLAMMap, kf_idx, cam, active,
+                   config: SLAMConfig):
+    """ReFind search of the `active` points against keyframe `kf_idx` (a
+    host int or 0-d tensor) of the map: templates at its pose, then
+    _refind_search_core on its frame (JAX ``mapmaker.py:662``)."""
+    pts, kfs = slam_map.points, slam_map.keyframes
+    k = _slot_index(kf_idx, kfs.t.device)
+    R, t = _slot(kfs.R, k), _slot(kfs.t, k)
+    _, warp_inv, search_level, _ = _refind_geometry(
+        cam, R, t, pts.pos_w, pts.pixel_right_w, pts.pixel_down_w, config)
+    tmpl = refind_templates(kfs.pyramid, pts.source_kf, pts.source_level,
+                            pts.center, warp_inv, search_level, config)
+    return _refind_search_core(
+        pts, tmpl, R, t, tuple(_slot(p, k) for p in kfs.pyramid),
+        tuple(_slot(c, k) for c in kfs.corner_mask), cam, active, config)
+
+
+def refind_pairs(slam_map: SLAMMap, pair_pt, pair_kf, pair_ok, cam,
+                 config: SLAMConfig):
+    """ReFind_Common over an explicit (point, keyframe) pair list [Q]:
+    project point pair_pt[q] into keyframe pair_kf[q], warp its template
+    from its source keyframe (refind_templates), then search that
+    keyframe's level images as _refind_search_core does (_refind_match on
+    the keyframe stacks). Returns (found, pos_zero, search_level,
+    did_subpix), each [Q]."""
+    pts, kfs = slam_map.points, slam_map.keyframes
+    pt, kf = pair_pt.long(), pair_kf.long()
+    R, t = kfs.R[kf], kfs.t[kf]  # [Q, 3, 3], [Q, 3]
+    px, warp_inv, search_level, ok = _refind_geometry(
+        cam, R, t, pts.pos_w[pt], pts.pixel_right_w[pt], pts.pixel_down_w[pt],
+        config)
+    tmpl = refind_templates(kfs.pyramid, pts.source_kf[pt],
+                            pts.source_level[pt], pts.center[pt], warp_inv,
+                            search_level, config)
+    active = pair_ok & ok & ~tmpl.bad
+    found, pos_zero, sub_sel = _refind_match(
+        kfs.pyramid, kfs.corner_mask, tmpl, px, search_level, active, config,
+        kf_idx=kf)
     return found, pos_zero, search_level, sub_sel
 
 
@@ -522,21 +594,44 @@ def refind_in_keyframe(slam_map: SLAMMap, kf_idx: int, cam, point_mask,
                        config: SLAMConfig):
     """ReFind_Common over the `point_mask` points in keyframe `kf_idx` (a
     host int; ReFindInSingleKeyFrame, MapMaker.cc:967-1058): the live points
-    it does not observe yet are searched there as refind_pairs does, and a
+    it does not observe yet are searched there (_refind_search), and a
     SRC_REFIND measurement is added for each one found. Returns (slam_map,
     found [N], never_retry_new [N]: searched and not found)."""
     pts, meas = slam_map.points, slam_map.meas
-    N = pts.n_slots
     already = map_store.point_observed_in(meas, kf_idx)
     active = point_mask & pts.live() & ~already
-    device = active.device
-    found, pos_zero, search_level, did_subpix = refind_pairs(
-        slam_map, torch.arange(N, device=device),
-        torch.full((N,), kf_idx, dtype=torch.long, device=device), active,
-        cam, config,
-    )
+    found, pos_zero, search_level, did_subpix = _refind_search(
+        slam_map, kf_idx, cam, active, config)
     meas = add_measurements_batch(meas, found, kf_idx, pos_zero, search_level,
                                   SRC_REFIND, did_subpix)
+    return slam_map.replace(meas=meas), found, active & ~found
+
+
+def refind_in_keyframes_batched(slam_map: SLAMMap, cam, point_mask_kn,
+                                config: SLAMConfig):
+    """ReFindNewlyMade / ReFindFromFailureQueue over ALL keyframes (JAX
+    ``mapmaker.py:705-756``, the oracle of the sharded re-find tests):
+    point_mask_kn [K, N] selects each keyframe's points (keyframe validity,
+    the live mask and the points it already observes are folded in here).
+    Every keyframe is searched first (_refind_search, one keyframe at a
+    time, where the JAX package maps over chunks of 4 to bound its
+    memory), then measurements are inserted keyframe by keyframe in slot
+    order, so slot allocation and eviction are the per-keyframe loop's.
+    Returns (slam_map, found_kn [K, N], never_retry_new_kn [K, N])."""
+    pts, kfs, meas = slam_map.points, slam_map.keyframes, slam_map.meas
+    K = kfs.n_slots
+    already = torch.stack([map_store.point_observed_in(meas, k)
+                           for k in range(K)])
+    active = (point_mask_kn & pts.live()[None] & ~already
+              & kfs.valid[:, None])
+    found, pos_zero, search_level, did_subpix = (
+        torch.stack(parts) for parts in zip(*(
+            _refind_search(slam_map, k, cam, active[k], config)
+            for k in range(K))))
+    for k in range(K):
+        meas = add_measurements_batch(meas, found[k], k, pos_zero[k],
+                                      search_level[k], SRC_REFIND,
+                                      did_subpix[k])
     return slam_map.replace(meas=meas), found, active & ~found
 
 

@@ -98,7 +98,7 @@ class Templates(TensorTree):
                            for f in dataclasses.fields(self)))
 
 
-def _finalize_templates(data, bad) -> Templates:
+def finalize_templates(data, bad) -> Templates:
     """Template sums (MakeTemplateSums, PatchFinder.cc:153-166) and the
     inverse-composition Hessian (MakeSubPixTemplate :242-267)."""
     t_sum = torch.sum(data, dim=(-2, -1))
@@ -157,7 +157,7 @@ def make_templates_warped_multilevel(source_pyramids, source_kf,
     vals = img_ops.bilinear_levels(stack, level, source_kf.long()[:, None], src)
     data = torch.where(valid, vals, 0.0).reshape(-1, n, n)
     bad = torch.any(~valid, dim=-1)
-    return _finalize_templates(data, bad)
+    return finalize_templates(data, bad)
 
 
 def make_templates_nowarp(source_imgs, source_kf, source_center,
@@ -176,7 +176,7 @@ def make_templates_nowarp(source_imgs, source_kf, source_center,
     xs = torch.clamp(cx[:, None, None] + r[None, None, :], 0, W - 1)
     ys = torch.clamp(cy[:, None, None] + r[None, :, None], 0, H - 1)
     data = source_imgs[source_kf.long()[:, None, None], ys, xs]
-    return _finalize_templates(data, bad)
+    return finalize_templates(data, bad)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -6,12 +6,14 @@ x1.345 for Huber), weights, square-root weights and objective scores.
 Inputs are *squared* errors, as in the reference. The median is taken over
 a fixed-shape tensor plus a validity mask with one sort, or read from a
 log2 histogram of the squared errors (``find_sigma_squared_hist``, the form
-that point shards on several devices can add up; here on one device).
+that point shards on several ranks add up: one psum of the histogram).
 """
 
 from __future__ import annotations
 
 import torch
+
+from visualslam_android_tpu_torch.parallel import mesh as mesh_mod
 
 TUKEY = "tukey"
 CAUCHY = "cauchy"
@@ -61,13 +63,16 @@ def find_sigma_squared_hist(err_sq, mask=None, estimator=TUKEY,
     bins octaves of resolution, sigma within a few percent. Counts
     accumulate in f32 whatever the input dtype; adding 1.0 is exact below
     2^24, so the counts do not depend on the order of the additions. The
-    whole computation stays on the input's device, with no host read. Over
-    a mesh axis the histograms would be summed across devices: not ported
-    (ROADMAP queue 1 item 5)."""
-    if axis_name is not None:
-        raise NotImplementedError(
-            "find_sigma_squared_hist over a mesh axis (axis_name) is not "
-            "ported: ROADMAP queue 1 item 5")
+    whole computation stays on the input's device, with no host read.
+
+    axis_name: a ``parallel.mesh.Mesh`` whose ranks each hold a shard of
+    the errors. The [bins] histogram (for least squares the (n, s) sums)
+    then goes through one psum, so every rank reads the median of all the
+    shards; the counts are f32 sums of 1.0, so it equals the unsharded
+    one."""
+    if axis_name is not None and not isinstance(axis_name, mesh_mod.Mesh):
+        raise TypeError(f"axis_name must be a parallel.mesh.Mesh, not "
+                        f"{axis_name!r}")
     if mask is None:
         mask = torch.ones_like(err_sq, dtype=torch.bool)
     e = err_sq.reshape(-1)
@@ -77,6 +82,8 @@ def find_sigma_squared_hist(err_sq, mask=None, estimator=TUKEY,
     if estimator == LEAST_SQUARES:
         n = torch.sum(m)
         s = torch.sum(torch.where(m > 0, e, 0.0).to(torch.float32))
+        if axis_name is not None:
+            n, s = _psum(axis_name, torch.stack([n, s]))
         return torch.where(n > 0, s / torch.clamp(n, min=1.0),
                            0.0).to(dtype)
 
@@ -86,6 +93,8 @@ def find_sigma_squared_hist(err_sq, mask=None, estimator=TUKEY,
                       bins - 1)
     hist = torch.zeros(bins, dtype=torch.float32,
                        device=e.device).index_add_(0, idx, m)
+    if axis_name is not None:
+        hist = _psum(axis_name, hist)
 
     n = torch.sum(hist)
     target = torch.floor(n / 2.0)
@@ -103,6 +112,11 @@ def find_sigma_squared_hist(err_sq, mask=None, estimator=TUKEY,
     sigma = 1.4826 * (1.0 + 5.0 / (2.0 * nf - 6.0)) * torch.sqrt(med)
     sigma = _SIGMA_MULT[estimator] * sigma
     return (sigma * sigma).to(dtype)
+
+
+def _psum(mesh, x):
+    """psum over the mesh, counted under the comm model's sigma item."""
+    return mesh_mod.psum(mesh, x, site="sigma_gather")
 
 
 def square_root_weight(err_sq, sigma_sq, estimator=TUKEY):

@@ -1,9 +1,10 @@
-"""Multi-stream tracking on one device: S independent camera streams
-tracked against one shared, read-only map in one batched program.
+"""Multi-stream tracking: S independent camera streams tracked against one
+shared, read-only map, in one batched program on one device or with the
+streams sharded over the ranks of a mesh.
 
-Port of the single-device half of the JAX package's
-``parallel/replicated_tracking.py`` (``StreamState``, ``StreamOutputs``,
-``init_streams``, ``stream_step``; SURVEY.md §2, row "replicated
+Port of the JAX package's ``parallel/replicated_tracking.py``
+(``StreamState``, ``StreamOutputs``, ``init_streams``, ``stream_step``,
+``make_mesh``, ``replicated_step_fn``; SURVEY.md §2, row "replicated
 tracking"). Each stream runs the full TrackFrame hot path
 (jni/Tracker.cc:76-146): front-end, SBI + ESM rotation prior, motion
 model, TrackMap and the motion-model update. Every operation is issued
@@ -22,8 +23,10 @@ and fine selection draws; here the caller passes those draws, as
 device-to-host read: the caller reads the ``StreamOutputs`` once per
 frame.
 
-The multi-device half (``make_mesh``, ``replicated_step_fn``: the stream
-axis sharded over devices) is not ported yet.
+``replicated_step_fn`` shards the stream axis over a mesh
+(parallel/mesh.py): each rank runs ``stream_step`` on its S/D streams
+against the replicated map (one stream-gridded FAST launch per rank per
+step), and every rank gets the whole state and outputs back by all_gather.
 """
 
 from __future__ import annotations
@@ -38,13 +41,14 @@ from visualslam_android_tpu_torch.models import tracker
 from visualslam_android_tpu_torch.models.map_store import FrameData, SLAMMap
 from visualslam_android_tpu_torch.ops import camera as cam_ops
 from visualslam_android_tpu_torch.ops import sbi as sbi_ops
+from visualslam_android_tpu_torch.parallel import mesh as mesh_mod
+from visualslam_android_tpu_torch.parallel.mesh import make_mesh  # noqa: F401
 from visualslam_android_tpu_torch.utils.tensors import (
     TensorTree,
     default_device,
 )
 
 _dc = dataclasses.dataclass(frozen=True)
-
 
 @_dc
 class StreamState(TensorTree):
@@ -161,3 +165,22 @@ def stream_step(imgs, state: StreamState, slam_map: SLAMMap,
         has_sbi=torch.ones_like(state.has_sbi),
     )
     return new_state, StreamOutputs(*outs)
+
+
+def replicated_step_fn(mesh, config: SLAMConfig):
+    """stream_step with the stream axis sharded over `mesh` and the map and
+    camera replicated. Returns step(imgs, state, slam_map, cam, uniforms)
+    taking the global [S, ...] batch (S a multiple of the mesh size, as in
+    the JAX package): each rank steps its S/D streams, and the new state and
+    outputs of all S streams come back on every rank."""
+
+    def step(imgs, state: StreamState, slam_map: SLAMMap,
+             cam: cam_ops.Camera, uniforms):
+        rows = mesh_mod.shard_rows(mesh, imgs.shape[0])
+        new_state, outputs = stream_step(
+            imgs[rows], state._map(lambda x: x[rows]), slam_map, cam,
+            uniforms[rows], config)
+        return (mesh_mod.gather_tree(mesh, new_state, site="streams"),
+                mesh_mod.gather_tree(mesh, outputs, site="streams"))
+
+    return step
