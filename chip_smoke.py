@@ -20,8 +20,9 @@ epipolar search, replicated tracking) on one rank over NCCL and on four
 ranks sharing the card over gloo.
 
 1. device: requires CUDA; prints the card's name and power limit;
-2. build: compiles the CUDA kernels (csrc/fast.cu) with nvcc and prints
-   what ptxas reports for each;
+2. build: compiles the CUDA kernels (csrc/fast.cu, csrc/segsum.cu), one
+   nvcc per source, started together, and prints what ptxas reports for
+   each;
 3. kernels vs plain, on an 800x480 frame's four pyramid levels, each timed
    with CUDA events (median of 50), eager and as CUDA-graph replays (device
    time), beside its bound (bytes moved over the memory rate, or f32
@@ -36,6 +37,19 @@ ranks sharing the card over gloo.
      bound counts what this frame's corners ask for: the corner mask read,
      the nonmax mask written, and the 32-byte sectors of the image under
      the rings of the corners that have a neighbouring corner;
+18. (run right after phase 3) the segmented-sum kernel of bundle
+   adjustment's scatter sums (csrc/segsum.cu, ops/scatter.segmented_sum)
+   at phase 9's shapes: U and the CG product over the measurement table's
+   camera index and the first point chunk's camera-pair sum, at 32 and at
+   128 keyframe slots, and at 128 slots the chunk's block band; each on
+   the indices and kept terms bundle_adjust's plans take, with seeded
+   values onto a seeded out: within 1e-5 of each row's sum of |terms| of
+   the plain version, two launches bit-equal, rows without terms
+   untouched; timed as CUDA-graph replays (median of 50) beside its
+   bound, the plain version and the two library calls that compute the
+   same sum (index_put_(accumulate=True) and index_add_). Every path that
+   runs bundle adjustment (phases 7-12, 14-16, and 17's ranks) must launch
+   it; its launches are counted per path;
 4. slice: builds the 2048-slot fixed map of ``bench.py`` on the card,
    renders its 100 chained frames there and runs ``frame_step`` over them,
    chaining pose, velocity, SBI and map; every frame must find more than
@@ -99,7 +113,8 @@ ranks sharing the card over gloo.
    must be lost on the blank frames, relocalize on the first real frame
    after them and track GOOD after;
    no result may hold a NaN; fast_detect_levels must launch once per
-   front-end run and fast_nonmax_levels once per keyframe inserted. Each
+   front-end run and fast_nonmax_levels once per keyframe inserted, and
+   no synchronising call may come from triangulation. Each
    mapping task is timed from here between two device synchronisations,
    and the facade's device-to-host reads are counted per tracked frame.
    The first keyframe integration (integrate_keyframe, growth at levels 3,
@@ -224,12 +239,15 @@ is the sum over phases 4, 7, 9-17, `launches_by_path` gives
 each, phase 17's as "sharded" (this process: the second keyframe) and
 "sharded_ranks" (the ranks' launches, summed); the row
 fast_detect_levels_streams is the same kernel's stream-gridded launch,
-counted on the streams path and by the ranks) and
-the ``{"ok": true, "device": ...}`` line. It imports no jax.
+counted on the streams path and by the ranks; the row segmented_sum
+gives the 128-slot pair chunk's figures and every case of phase 18 under
+"cases") and the ``{"ok": true, "device": ...}`` line. It imports no
+jax.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import json
 import os
@@ -396,6 +414,13 @@ SHARDED_WARMUP = 2
 H100_BYTES_PER_S = 3.35e12
 H100_F32_OPS_PER_S = 67e12
 
+
+# Phase 18: the segmented-sum kernel against its plain version. The two
+# add each row's terms in different orders (a fixed tree of per-thread
+# partial sums, and one after another): each element within SEGSUM_RTOL of
+# its row's sum of |terms| (f32 rounding of up to ~1000 terms).
+SEGSUM_RTOL = 1e-5
+SEGSUM_SEED = 18
 
 class SmokeFailure(RuntimeError):
     pass
@@ -1245,15 +1270,18 @@ def phase_ba_full(device, card, config, bundle, cam_ops, lie, mestimator,
     check(differ <= 0.01 * n_meas,
           f"card and CPU eject different measurements: {differ}")
 
-    # One LM iteration at the problem's first state, stage by stage.
+    # One LM iteration at the problem's first state, stage by stage, with
+    # the scatter sums' plans made once, as bundle_adjust makes them.
     sp, valid = bundle._sanitized(prob)
     fixed_m = sp.cam_fixed[sp.meas_kf.long()]
     lam = bc.lambda_init
+    ms_plans, plans = event_ms(lambda: bundle._make_plans(
+        sp.meas_kf, K, bc.point_block))
     ms_lin, lin = event_ms(lambda: bundle._linearize(
         sp, cam, sp.cam_R, sp.cam_t, sp.points, valid, fixed_m,
-        bundle.MIN_SIGMA_SQ))
+        bundle.MIN_SIGMA_SQ, plan=plans.kf))
     ms_schur, (Sm, E, Vinv, free) = event_ms(lambda: bundle._reduced_system(
-        lin, sp, lam, bc.point_block))
+        lin, sp, lam, bc.point_block, plans=plans))
     ms_solve, upd = event_ms(lambda: wls.solve_spd(Sm, E.reshape(-1),
                                                    ridge=0.0))
     ms_back, _ = event_ms(lambda: bundle._back_substitute(
@@ -1265,7 +1293,9 @@ def phase_ba_full(device, card, config, bundle, cam_ops, lie, mestimator,
           f"([{N}, {O}, {O}, 6, 6] pair blocks into [{6 * K}, {6 * K}]), "
           f"Cholesky solve {ms_solve:.3f} ms, back-substitution + "
           f"re-projection {ms_back:.3f} ms; sum "
-          f"{ms_lin + ms_schur + ms_solve + ms_back:.3f} ms  [{card}]")
+          f"{ms_lin + ms_schur + ms_solve + ms_back:.3f} ms; the scatter "
+          f"sums' plans, once per bundle_adjust call, {ms_plans:.3f} ms  "
+          f"[{card}]")
 
 
 def make_band_problem(config, seed, bundle, cam_ops, synthetic, lie):
@@ -1364,20 +1394,24 @@ def run_ba_path(prob, cam, assembly, solver, config, bundle):
 def ba_path_stages(prob, cam, assembly, solver, config, bundle, wls):
     """One LM iteration of a path at the problem's first state, stage by
     stage (CUDA events around the eager calls, median of 5; a CG stage
-    includes its reads)."""
+    includes its reads), and the scatter sums' plans that bundle_adjust
+    makes once per call ("plans", not part of the iteration)."""
     bc = config.bundle
     K = prob.cam_R.shape[0]
     sp, valid = bundle._sanitized(prob)
     fixed_m = sp.cam_fixed[sp.meas_kf.long()]
     lam = bc.lambda_init
     ms = {}
+    plans_ms, plans = event_ms(lambda: bundle._make_plans(
+        sp.meas_kf, K, bc.point_block, assembly, solver, BIG_BAND), reps=5)
     ms["linearize"], lin = event_ms(lambda: bundle._linearize(
         sp, cam, sp.cam_R, sp.cam_t, sp.points, valid, fixed_m,
-        bundle.MIN_SIGMA_SQ), reps=5)
+        bundle.MIN_SIGMA_SQ, plan=plans.kf), reps=5)
     if solver == "chol":
         ms["schur"], (Sm, E, Vinv, free) = event_ms(
             lambda: bundle._reduced_system(lin, sp, lam, bc.point_block,
-                                           assembly, BIG_BAND), reps=5)
+                                           assembly, BIG_BAND, plans=plans),
+            reps=5)
         ms["cholesky"], upd = event_ms(
             lambda: wls.solve_spd(Sm, E.reshape(-1), ridge=0.0), reps=5)
         upd = upd.reshape(K, 6)
@@ -1385,11 +1419,11 @@ def ba_path_stages(prob, cam, assembly, solver, config, bundle, wls):
         ms["assembly + cg"], (upd, Vinv, free) = event_ms(
             lambda: bundle._cg_camera_update(
                 lin, sp, lam, bc.point_block, solver, BIG_BAND, bc.cg_iters,
-                bc.cg_tol), reps=5)
+                bc.cg_tol, plans=plans), reps=5)
     ms["back-substitution"], _ = event_ms(lambda: bundle._back_substitute(
         lin, sp, cam, sp.cam_R, sp.cam_t, sp.points, upd, Vinv, free,
         bc.update_convergence), reps=5)
-    return ms
+    return ms, plans_ms
 
 
 def phase_ba_large(device, card, config, bundle, cam_ops, lie, mestimator,
@@ -1434,8 +1468,8 @@ def phase_ba_large(device, card, config, bundle, cam_ops, lie, mestimator,
         ejected = res.outlier_meas.cpu()
         hit = int((ejected & moved).sum())
         differ = int((ejected != res_c.outlier_meas).sum())
-        stages = ba_path_stages(prob, cam, assembly, solver, config, bundle,
-                                wls)
+        stages, plans_ms = ba_path_stages(prob, cam, assembly, solver,
+                                          config, bundle, wls)
         cg = (f"; CG {cg_it / solves:.1f} iterations and "
               f"{cg_reads / solves:.2f} reads per solve over {solves} "
               f"solves (CPU: {cpu[4] / max(cpu[3], 1):.1f} iterations)"
@@ -1453,7 +1487,8 @@ def phase_ba_large(device, card, config, bundle, cam_ops, lie, mestimator,
               f"{differ} measurements (CPU {cpu_ms / 1e3:.1f} s); one LM "
               f"iteration by stage: " + ", ".join(
                   f"{k} {v:.3f} ms" for k, v in stages.items())
-              + f", sum {sum(stages.values()):.3f} ms  [{card}]")
+              + f", sum {sum(stages.values()):.3f} ms; plans (once per "
+              f"call) {plans_ms:.3f} ms  [{card}]")
         check(rms1 < BA_RMS_AFTER, f"{name} ended at rms {rms1}")
         check(hit >= BA_EJECTED_SHARE * n_moved,
               f"{name} ejected only {hit} of {n_moved} moved measurements")
@@ -1474,6 +1509,111 @@ def phase_ba_large(device, card, config, bundle, cam_ops, lie, mestimator,
         if solver != "chol":
             check(solves == iters and cg_it > 0,
                   f"{name}: {solves} CG solves for {iters} LM iterations")
+
+
+def segsum_cases(config, bundle, cam_ops, lie, synthetic, device):
+    """(label, index, n_rows, row shape, keep) at phase 9's shapes: for
+    the 32-slot problem (make_ba_problem) and the 128-slot one
+    (make_band_problem), U [K, 6, 6] and the CG product [K, 6] over the
+    measurement table's camera index, the first point chunk's camera-pair
+    sum [K K, 6, 6], and for 128 slots that chunk's block band
+    [K (2 band + 1) + 1, 6, 6], dead row included; indices and kept terms
+    (the valid measurements and their pairs) as bundle_adjust's plans
+    take them."""
+    block = config.bundle.point_block
+    cases = []
+    for label, (prob, _, _) in (
+            ("32 slots", make_ba_problem(config, BA_SEED, bundle, cam_ops,
+                                         lie, synthetic)),
+            (f"{BIG_K} slots", make_band_problem(config, BIG_SEED, bundle,
+                                                 cam_ops, synthetic, lie))):
+        sp, valid = bundle._sanitized(prob)
+        K = sp.cam_R.shape[0]
+        kf = sp.meas_kf.long().to(device)
+        valid = valid.to(device)
+        chunk = kf[:block]
+        pairs = valid[:block, :, None] & valid[:block, None, :]
+        cases += [(f"U, {label}", kf.reshape(-1), K, (6, 6), valid),
+                  (f"pair chunk, {label}", bundle._pair_index(chunk, K),
+                   K * K, (6, 6), pairs)]
+        if K == BIG_K:
+            cases.append((f"band chunk, {label}",
+                          bundle._band_index(chunk, K, BIG_BAND),
+                          K * (2 * BIG_BAND + 1) + 1, (6, 6), pairs))
+        cases.append((f"CG product, {label}", kf.reshape(-1), K, (6,),
+                      valid))
+    return cases
+
+
+def phase_segsum(device, card, config, bundle, scatter, cam_ops, lie,
+                 synthetic):
+    """Phase 18: segmented_sum_kernel against its plain version on the
+    card at phase 9's shapes (segsum_cases), on seeded values onto a
+    seeded out: each element within SEGSUM_RTOL of its row's sum of
+    |terms|, two launches bit-equal, rows without terms untouched; then
+    timed beside its bound, the plain version and the two library calls
+    that compute the same sum. Returns the cases' figures."""
+    gen = torch.Generator(device=device).manual_seed(SEGSUM_SEED)
+    rows = []
+    for label, index, n_rows, shape, keep in segsum_cases(
+            config, bundle, cam_ops, lie, synthetic, device):
+        n_terms, width = index.numel(), int(np.prod(shape))
+        src = torch.randn(n_terms, *shape, generator=gen, device=device)
+        out0 = torch.randn(n_rows, *shape, generator=gen, device=device)
+        plan = scatter.make_plan(index, n_rows, keep)
+        keep = keep.reshape(-1)
+        kept_index, kept_src = index[keep], src[keep]
+        n_kept = kept_index.numel()
+        first = scatter.segmented_sum(out0.clone(), plan, src)
+        second = scatter.segmented_sum(out0.clone(), plan, src)
+        plain = scatter.segmented_sum_reference(out0.clone(), plan, src)
+        abs_sum = scatter.segmented_sum_reference(
+            torch.zeros_like(out0), plan, src.abs())
+        torch.cuda.synchronize()
+        hit = plan.row_start[1:] > plan.row_start[:-1]
+        err = (first - plain).abs()
+        max_err = float(err.max())
+        check(torch.equal(first.view(torch.int32), second.view(torch.int32)),
+              f"segmented_sum, {label}: two launches differ")
+        check(bool((err <= SEGSUM_RTOL * abs_sum).all()),
+              f"segmented_sum, {label}: {max_err} from the plain version, "
+              f"beyond {SEGSUM_RTOL} of a row's sum of |terms|")
+        check(torch.equal(first[~hit].view(torch.int32),
+                          out0[~hit].view(torch.int32)),
+              f"segmented_sum, {label}: a row without terms changed")
+        n_hit = int(hit.sum())
+        buf = torch.zeros_like(out0)
+        eager, ms = cuda_ms(lambda: scatter.segmented_sum(buf, plan, src))
+        plain_eager, plain_ms = cuda_ms(
+            lambda: scatter.segmented_sum_reference(buf, plan, src))
+        # The library calls that compute the same sum: over the kept terms.
+        _, put_ms = cuda_ms(
+            lambda: buf.index_put_((kept_index,), kept_src, accumulate=True))
+        _, add_ms = cuda_ms(lambda: buf.index_add_(0, kept_index, kept_src))
+        # Each kept term's values and its perm entry read once, row_start
+        # read once, each row with terms read and written once; one f32 add
+        # per value of a kept term.
+        n_bytes = 4 * (n_kept * width + n_kept + n_rows + 1
+                       + 2 * n_hit * width)
+        bound, by = bound_ms(n_bytes, n_kept * width)
+        row = dict(case=label, terms=n_terms, kept=n_kept, rows=n_rows,
+                   rows_hit=n_hit, width=width,
+                   threads=scatter.threads_for(n_terms, n_rows),
+                   max_abs_err=max_err, ms=ms, eager_ms=eager,
+                   plain_ms=plain_ms, plain_eager_ms=plain_eager,
+                   bound_ms=bound, bound_by=by, bytes=n_bytes,
+                   index_put_ms=put_ms, index_add_ms=add_ms)
+        rows.append(row)
+        print(f"segmented_sum, {label}: {n_kept} of {n_terms} terms kept, "
+              f"{width} values each, into {n_rows} rows ({n_hit} hit), "
+              f"{row['threads']} threads a "
+              f"row; device kernel {ms:.5f} ms (eager call {eager:.5f}), "
+              f"bound {bound:.5f} ms by {by} ({n_bytes} B), plain "
+              f"{plain_ms:.5f} ms, index_put_(accumulate=True) {put_ms:.5f} "
+              f"ms, index_add_ {add_ms:.5f} ms; max "
+              f"|kernel - plain| {max_err:.3e}, two launches bit-equal  "
+              f"[{card}]")
+    return rows
 
 
 def phase_large_map(device, card, fast, slam, fstep, bundle, synthetic,
@@ -2223,6 +2363,13 @@ def phase_full_slam(device, card, fast, slam, fstep, relocalizer,
               f"frames: {sum(where.values())} (reads counted: "
               f"{sum(n_reads.values())}); by line: "
               f"{sorted(where.items(), key=lambda kv: -kv[1])}")
+        # Triangulation takes its null vector without eigh, whose error
+        # check synchronised once per growth level.
+        tri = {call: n for call, n in where.items()
+               if call[0] == "triangulate.py"}
+        print(f"full SLAM: synchronising calls in triangulate.py: "
+              f"{sum(tri.values())}")
+        check(not tri, f"triangulation synchronised: {tri}")
         # A tracked frame whose mapping task was "none" synchronises only in
         # its stats read (and a relocalization read). The first frames
         # after the bootstrap also fill per-shape caches (image._level_meta,
@@ -2725,8 +2872,8 @@ def phase_sharded(device, card, config, sm, cam, scene, frames, poses,
                   ba_iters=SHARDED_BA_ITERS):
     """Phase 17: every multi-device leg at each (ranks, backend, transport)
     of `runs`, held against the single-device port function on `device`.
-    Returns (the parent's FAST launches of the path, the ranks' FAST
-    launches summed over ranks and runs)."""
+    Returns (the parent's FAST launches of the path, the ranks' FAST and
+    segmented-sum launches summed over ranks and runs)."""
     from visualslam_android_tpu_torch.parallel import mesh as mesh_mod
     from visualslam_android_tpu_torch.parallel import rank_programs
     from visualslam_android_tpu_torch.parallel import sharded_ba
@@ -2808,6 +2955,10 @@ def phase_sharded(device, card, config, sm, cam, scene, frames, poses,
                             for r in rs for case in r.values()
                             if "launches" in case)
                      for k in fast.LAUNCHES}
+    rank_launches["segmented_sum"] = sum(
+        case["scatter_launches"]["segmented_sum"]
+        for rs in results.values() for r in rs for case in r.values()
+        if "scatter_launches" in case)
 
     # The single-device references on `device`.
     p128_d, c128_d = p128.to(device), c128.to(device)
@@ -3093,7 +3244,7 @@ def main():
     from visualslam_android_tpu_torch.models import tracker
     from visualslam_android_tpu_torch.ops import camera as cam_ops
     from visualslam_android_tpu_torch.ops import cuda_build, fast, image, lie
-    from visualslam_android_tpu_torch.ops import mestimator, wls
+    from visualslam_android_tpu_torch.ops import mestimator, scatter, wls
     from visualslam_android_tpu_torch.ops import sbi as sbi_ops
     from visualslam_android_tpu_torch.parallel import replicated_tracking
     from visualslam_android_tpu_torch import run_slam
@@ -3113,13 +3264,17 @@ def main():
     print(f"device: {name} ({torch.cuda.device_count()} visible), "
           f"torch {torch.__version__}, CUDA {torch.version.cuda}")
 
-    # ---- 2. build ----
+    # ---- 2. build: one nvcc per source, all started together ----
     t_build = time.perf_counter()
-    lib = fast.build_kernel()
-    print(f"build: {lib} in {time.perf_counter() - t_build:.3f} s")
-    for line in cuda_build.build_log("fast.cu").splitlines():
-        if "registers" in line or "Compiling entry" in line:
-            print(f"  {line.strip()}")
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        libs = list(pool.map(lambda build: build(),
+                             (fast.build_kernel, scatter.build_kernel)))
+    print(f"build: {', '.join(libs)} in {time.perf_counter() - t_build:.3f} "
+          f"s")
+    for source in ("fast.cu", "segsum.cu"):
+        for line in cuda_build.build_log(source).splitlines():
+            if "registers" in line or "Compiling entry" in line:
+                print(f"  {source}: {line.strip()}")
 
     # ---- 3. kernels vs plain ----
     levels, thresholds = level_images(device, fixtures, synthetic, image)
@@ -3153,6 +3308,20 @@ def main():
           f"differ from nonmax_3x3 on the kernel's score, "
           f"{nm['near_tie_pixels']} (all near-ties) from the plain version, "
           f"max |mask difference| {nm['max_abs_err']}  [{card}]")
+
+    # ---- 18. the segmented-sum kernel vs plain, at phase 9's shapes ----
+    segsum_rows = phase_segsum(device, card, fixtures.full_config(), bundle,
+                               scatter, cam_ops, lie, synthetic)
+
+    # The segmented-sum launches of each path: set to 0 just before the
+    # path runs, read just after.
+    seg_by_path = {}
+
+    @contextlib.contextmanager
+    def seg_path(name):
+        scatter.LAUNCHES["segmented_sum"] = 0
+        yield
+        seg_by_path[name] = scatter.LAUNCHES["segmented_sum"]
 
     # ---- 4. the tracking slice on the fixture map ----
     config = fixtures.full_config()
@@ -3262,69 +3431,89 @@ def main():
         synthetic, lie, mestimator)
     del frames, sm
 
+    seg_by_path["sharded_ranks"] = sharded_rank_launches["segmented_sum"]
+
     # ---- 7. the stereo bootstrap, then tracking on its map ----
-    (b_config, b_cam, b_frames, trails, second, init, boot_launches,
-     kf_args) = phase_bootstrap(device, card, fast, bootstrap, frame_step,
-                                tracker, fixtures, synthetic, cam_ops)
+    with seg_path("bootstrap"):
+        (b_config, b_cam, b_frames, trails, second, init, boot_launches,
+         kf_args) = phase_bootstrap(device, card, fast, bootstrap,
+                                    frame_step, tracker, fixtures, synthetic,
+                                    cam_ops)
 
     # ---- 8. bootstrap: card vs CPU ----
-    phase_bootstrap_cpu(b_config, b_cam, card, b_frames, trails, second,
-                        init, bootstrap, frame_step)
-    compare_keyframe_replay(kf_args, "bootstrap map, keyframe 2 from the last "
-                            "tracked frame", device, card, frame_step, slam,
-                            bundle, grows=True)
+    with seg_path("bootstrap_replay"):
+        phase_bootstrap_cpu(b_config, b_cam, card, b_frames, trails, second,
+                            init, bootstrap, frame_step)
+        compare_keyframe_replay(kf_args, "bootstrap map, keyframe 2 from the "
+                                "last tracked frame", device, card,
+                                frame_step, slam, bundle, grows=True)
     del b_frames, trails, second, init, kf_args
 
     # ---- 9. bundle adjustment at full state size ----
     for key in fast.LAUNCHES:
         fast.LAUNCHES[key] = 0
-    phase_ba_full(device, card, b_config, bundle, cam_ops, lie, mestimator,
-                  synthetic, wls)
-    phase_ba_large(device, card, b_config, bundle, cam_ops, lie, mestimator,
-                   synthetic, wls)
+    with seg_path("ba_full_size"):
+        phase_ba_full(device, card, b_config, bundle, cam_ops, lie,
+                      mestimator, synthetic, wls)
+        phase_ba_large(device, card, b_config, bundle, cam_ops, lie,
+                       mestimator, synthetic, wls)
     ba_launches = dict(fast.LAUNCHES)
 
     # ---- 10. full SLAM through the facade ----
-    slam_launches, slam_rec = phase_full_slam(
-        device, card, fast, slam, frame_step, relocalizer, native_runtime,
-        bundle, datasets, synthetic, ate)
+    with seg_path("slam"):
+        slam_launches, slam_rec = phase_full_slam(
+            device, card, fast, slam, frame_step, relocalizer,
+            native_runtime, bundle, datasets, synthetic, ate)
     phase_slam_cpu(slam_rec, device, card, frame_step, slam, relocalizer,
                    bundle)
     del slam_rec
 
     # ---- 11. the large-map facade ----
-    large_launches = phase_large_map(
-        device, card, fast, slam, frame_step, bundle, synthetic, cam_ops, lie,
-        slam_launches["fast_nonmax_levels"])
+    with seg_path("large_map"):
+        large_launches = phase_large_map(
+            device, card, fast, slam, frame_step, bundle, synthetic, cam_ops,
+            lie, slam_launches["fast_nonmax_levels"])
 
     # ---- 12. the command line on the four TUM-format sequences ----
     t_phase = time.perf_counter()
-    cli_launches = phase_run_slam(device, card, fast, run_slam,
-                                  serialization, synthetic, cam_ops, lie,
-                                  imageio, native_runtime)
+    with seg_path("run_slam"):
+        cli_launches = phase_run_slam(device, card, fast, run_slam,
+                                      serialization, synthetic, cam_ops, lie,
+                                      imageio, native_runtime)
     print(f"phase 12 took {time.perf_counter() - t_phase:.1f} s")
 
     # ---- 14. bundle adjustment at 512 keyframes / 30,000 points ----
     for key in fast.LAUNCHES:
         fast.LAUNCHES[key] = 0
     t_phase = time.perf_counter()
-    phase_ba_512(device, card, bundle, mapmaker, fixtures, mestimator)
+    with seg_path("ba_512"):
+        phase_ba_512(device, card, bundle, mapmaker, fixtures, mestimator)
     ba512_launches = dict(fast.LAUNCHES)
     print(f"phase 14 took {time.perf_counter() - t_phase:.1f} s")
 
     # ---- 15. the 200-frame drift audit ----
     t_phase = time.perf_counter()
-    drift_launches = phase_drift(device, card, fast, slam, synthetic, lie,
-                                 ate)
+    with seg_path("drift"):
+        drift_launches = phase_drift(device, card, fast, slam, synthetic,
+                                     lie, ate)
     print(f"phase 15 took {time.perf_counter() - t_phase:.1f} s")
 
     # ---- 16. the real-photo run with sensor effects ----
     t_phase = time.perf_counter()
-    photo_launches = phase_photo(device, card, fast, slam, synthetic, lie,
-                                 ate)
+    with seg_path("photo"):
+        photo_launches = phase_photo(device, card, fast, slam, synthetic,
+                                     lie, ate)
     print(f"phase 16 took {time.perf_counter() - t_phase:.1f} s")
 
+    # Every path that runs bundle adjustment went through the kernel.
+    print(f"segmented_sum launches by path: {seg_by_path}")
+    for path, n in seg_by_path.items():
+        check(n > 0, f"the {path} path launched segmented_sum no time: "
+                     f"{seg_by_path}")
+
     print(f"all phases in {time.perf_counter() - t_all:.1f} s")
+    seg_main = next(r for r in segsum_rows
+                    if r["case"] == f"pair chunk, {BIG_K} slots")
     one_frame_ms = sum(r[2] for r in rows)
     one_frame_plain = sum(r[3] for r in rows)
     source = "visualslam_android_tpu_torch/csrc/fast.cu"
@@ -3370,6 +3559,24 @@ def main():
                  f"launches are counted under fast_detect_levels; "
                  f"sharded_ranks: replicated_step_fn's launches, one per "
                  f"rank per step, summed over phase 17's ranks"),
+        {"name": "segmented_sum", "route": "cuda",
+         "source": "visualslam_android_tpu_torch/csrc/segsum.cu",
+         "replaces": "none: the card's form of the JAX package's .at[].add "
+                     "at visualslam_android_tpu/models/bundle.py:177 (also "
+                     ":207, :242, :390, :583, :586), no Pallas kernel",
+         "launches": sum(seg_by_path.values()),
+         "launches_by_path": seg_by_path,
+         "max_abs_err": max(r["max_abs_err"] for r in segsum_rows),
+         "ms": seg_main["ms"], "plain_ms": seg_main["plain_ms"],
+         "bound_ms": seg_main["bound_ms"], "bound_by": seg_main["bound_by"],
+         "library_ms": seg_main["index_put_ms"],
+         "library_call": "index_put_((index,), src, accumulate=True)",
+         "library_index_add_ms": seg_main["index_add_ms"],
+         "figures_of": seg_main["case"], "cases": segsum_rows,
+         "note": "bundle_adjust's scatter sums (U, eps_a, E_corr, the Schur "
+                 "pairs, the band, band-to-dense, the CG product) through "
+                 "ops/scatter.segmented_sum, one launch per sum; "
+                 "sharded_ranks: phase 17's ranks, summed"},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

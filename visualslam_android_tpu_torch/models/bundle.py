@@ -21,8 +21,10 @@ jni/Bundle.{h,cc}; Hartley & Zisserman MVG Algorithm A6.4):
   its LM step and reported (Bundle.cc:516-531, :620-640).
 
 Measurements live in a point-major [N, O] table; U and eps_a are
-scatter sums over it (``_scatter_sum``: in a fixed order on the card too,
-so a run repeats itself bit for bit). The Schur correction is assembled from each
+scatter sums over it (``_scatter_sum``: ``ops/scatter.segmented_sum``, a
+hand-written kernel on the card that adds in a fixed order, so a run
+repeats itself bit for bit, driven by plans that ``bundle_adjust`` makes
+once before its LM loop, ``_Plans``). The Schur correction is assembled from each
 point's O x O camera-pair blocks, added by a flat pair index into the
 dense S (``_schur_blocks_scatter``) or into its block band
 (``_schur_blocks_band``: [K, 2P+1, 6, 6], every pair at most P keyframe
@@ -72,6 +74,7 @@ import torch
 from visualslam_android_tpu_torch.ops import camera as cam_ops
 from visualslam_android_tpu_torch.ops import lie
 from visualslam_android_tpu_torch.ops import mestimator as me
+from visualslam_android_tpu_torch.ops import scatter
 from visualslam_android_tpu_torch.ops import wls as wls_ops
 from visualslam_android_tpu_torch.parallel import mesh as mesh_mod
 from visualslam_android_tpu_torch.utils.tensors import TensorTree
@@ -247,67 +250,140 @@ def _jacobians(cam, pc, Rm, sqrt_w, sqrt_inv_noise, cam_fixed_m):
     return A, J @ Rm
 
 
-def _scatter_sum(out, index, src):
-    """out[index[m]] += src[m] along dim 0, in place (index int64 [M], src
-    [M, ...]). On a CUDA tensor index_add_ adds by atomics in no fixed
-    order, so two runs on the same inputs differ in the last bits and the
-    SLAM runs built on them part; index_put_(accumulate=True) sorts the
-    indices first and adds in a fixed order. On the CPU index_add_ adds in
-    order."""
-    if out.is_cuda:
-        return out.index_put_((index,), src, accumulate=True)
-    return out.index_add_(0, index, src)
+def _scatter_sum(out, plan, src):
+    """out[index[m]] += src[m] along dim 0, in place, by the plan of
+    index (ops/scatter.make_plan; src [M, ...]). On a CUDA tensor the
+    segmented-sum kernel adds each row's terms in a fixed order, so two
+    runs on the same inputs give the same bits (index_add_'s atomics add
+    in no fixed order, and the SLAM runs built on them part); on the CPU
+    index_add_ adds them in the index's order."""
+    return scatter.segmented_sum(out, plan, src)
 
 
-def _e_corr_scatter(meas_kf, Y, eps_b, K):
-    """E_corr [K, 6] = sum over measurements of Y eps_b, added per camera.
-    Y is zero for bad and fixed measurements (the weights are folded into
-    A and B), so dead slots add zeros."""
+def _pair_index(kf, K):
+    """Flat camera-pair index ii * K + jj [n O O] of a chunk of points'
+    camera indices kf [n, O] (int64)."""
+    return (kf[:, :, None] * K + kf[:, None, :]).reshape(-1)
+
+
+def _band_index(kf, K, band: int):
+    """Flat block-band index ii * (2 band + 1) + (jj - ii + band) [n O O]
+    of a chunk's camera pairs; a pair further apart than `band` goes to the
+    dead row K (2 band + 1)."""
+    width = 2 * band + 1
+    ii, jj = kf[:, :, None], kf[:, None, :]
+    dd = jj - ii + band
+    return torch.where((dd >= 0) & (dd < width), ii * width + dd,
+                       K * width).reshape(-1)
+
+
+def _band_dense_index(K, band: int, device):
+    """Flat dense index ii * K + jj [K (2 band + 1)] of each band block."""
+    jj, _ = _band_columns(K, band, device)
+    ii = torch.arange(K, device=device)[:, None].expand_as(jj)
+    return (ii * K + jj).reshape(-1)
+
+
+@dataclasses.dataclass(frozen=True)
+class _Plans:
+    """The segmented-sum plans of one bundle_adjust run, made once before
+    its LM loop (the indices do not change between LM iterations): the
+    measurement table's camera index (U, eps_a, E_corr, the CG product)
+    and, where the run's path needs them, each point chunk's camera-pair
+    index (dense Schur assembly) or band index, and the band-to-dense
+    index. A measurement that is not valid when the run starts adds
+    zeros to every sum (its A, B and residual are masked, and validity
+    only shrinks), so the plans leave it and its pairs out."""
+
+    kf: scatter.Plan
+    pairs: tuple = ()
+    band: tuple = ()
+    band_dense: scatter.Plan = None
+
+
+def _make_plans(meas_kf, K, block: int, assembly: str = "scatter",
+                solver: str = "chol", band: int = 16,
+                meas_valid=None) -> _Plans:
+    """The plans a run of (assembly, solver) needs, points in chunks of
+    `block`; with meas_valid [N, O], only the valid measurements' terms.
+    meas_kf must lie in [0, K)."""
+    kf = meas_kf.long()
+    starts = range(0, kf.shape[0], block)
+    chunks = [kf[n0:n0 + block] for n0 in starts]
+    if meas_valid is None:
+        keep, pair_keep = None, [None] * len(chunks)
+    else:
+        keep = meas_valid
+        pair_keep = [meas_valid[n0:n0 + block, :, None]
+                     & meas_valid[n0:n0 + block, None, :] for n0 in starts]
+    plans = dict(kf=scatter.make_plan(kf, K, keep))
+    if solver == "band_pcg" or (solver == "chol" and assembly == "band"):
+        plans["band"] = tuple(
+            scatter.make_plan(_band_index(c, K, band),
+                              K * (2 * band + 1) + 1, pk)
+            for c, pk in zip(chunks, pair_keep))
+    if solver == "chol" and assembly == "band":
+        plans["band_dense"] = scatter.make_plan(
+            _band_dense_index(K, band, kf.device), K * K)
+    elif solver == "chol":
+        plans["pairs"] = tuple(scatter.make_plan(_pair_index(c, K), K * K, pk)
+                               for c, pk in zip(chunks, pair_keep))
+    return _Plans(**plans)
+
+
+def _e_corr_scatter(meas_kf, Y, eps_b, K, plan=None):
+    """E_corr [K, 6] = sum over measurements of Y eps_b, added per camera
+    (plan: of meas_kf, made here when None). Y is zero for bad and fixed
+    measurements (the weights are folded into A and B), so dead slots add
+    zeros."""
+    if plan is None:
+        plan = scatter.make_plan(meas_kf, K)
     e = (Y @ eps_b[:, None, :, None])[..., 0]  # [N, O, 6]
     return _scatter_sum(torch.zeros(K, 6, dtype=Y.dtype, device=Y.device),
-                        meas_kf.reshape(-1).long(), e.reshape(-1, 6))
+                        plan, e.reshape(-1, 6))
 
 
-def _schur_blocks_scatter(meas_kf, Y, W, eps_b, K, block: int):
+def _schur_blocks_scatter(meas_kf, Y, W, eps_b, K, block: int, plans=None):
     """The Schur correction S_corr [K, 6, K, 6] and E_corr [K, 6] from
     per-point camera-PAIR blocks (the reference's off-diagonal scripts,
     jni/Bundle.cc:400-426, :580-607): for each point, every O x O pair
     (o, p) adds Y[o] W[p]^T to the block (kf[o], kf[p]). O(N O^2) work,
     whatever K. Points go through in chunks of `block`, which bounds the
-    [block, O, O, 6, 6] temporary. meas_kf must lie in [0, K)."""
+    [block, O, O, 6, 6] temporary. meas_kf must lie in [0, K); plans
+    (_Plans with pairs) are made here when None."""
     N, O = meas_kf.shape
-    E_corr = _e_corr_scatter(meas_kf, Y, eps_b, K)
-    kf = meas_kf.long()
+    if plans is None:
+        plans = _make_plans(meas_kf, K, block)
+    E_corr = _e_corr_scatter(meas_kf, Y, eps_b, K, plans.kf)
     pairs = torch.zeros(K * K, 6, 6, dtype=Y.dtype, device=Y.device)
-    for n0 in range(0, N, block):
+    for n0, plan in zip(range(0, N, block), plans.pairs):
         sl = slice(n0, n0 + block)
-        # T[n, o, p] = Y[n, o] W[n, p]^T
+        # T[n, o, p] = Y[n, o] W[n, p]^T, added at ii * K + jj
         T = Y[sl, :, None] @ W[sl, None].transpose(-1, -2)
-        flat = kf[sl, :, None] * K + kf[sl, None, :]  # ii * K + jj
-        _scatter_sum(pairs, flat.reshape(-1), T.reshape(-1, 6, 6))
+        _scatter_sum(pairs, plan, T.reshape(-1, 6, 6))
     return pairs.view(K, K, 6, 6).permute(0, 2, 1, 3), E_corr
 
 
-def _schur_blocks_band(meas_kf, Y, W, eps_b, K, band: int, block: int):
+def _schur_blocks_band(meas_kf, Y, W, eps_b, K, band: int, block: int,
+                       plans=None):
     """The Schur correction in block-band form, S_band [K, 2*band+1, 6, 6]
     with S_band[i, d] the (i, i+d-band) camera-pair block, and E_corr
     [K, 6]. A pair further apart than `band` is dropped (the JAX package
     scatters it with mode="drop"): callers check max_pair_offset first.
     Dropped pairs go to a dead row past the band, which the scatter needs
-    in range. meas_kf must lie in [0, K)."""
+    in range. meas_kf must lie in [0, K); plans (_Plans with band) are made
+    here when None."""
     N, O = meas_kf.shape
-    E_corr = _e_corr_scatter(meas_kf, Y, eps_b, K)
-    kf = meas_kf.long()
+    if plans is None:
+        plans = _make_plans(meas_kf, K, block, solver="band_pcg", band=band)
+    E_corr = _e_corr_scatter(meas_kf, Y, eps_b, K, plans.kf)
     width = 2 * band + 1
     dead = K * width
     out = torch.zeros(dead + 1, 6, 6, dtype=Y.dtype, device=Y.device)
-    for n0 in range(0, N, block):
+    for n0, plan in zip(range(0, N, block), plans.band):
         sl = slice(n0, n0 + block)
         T = Y[sl, :, None] @ W[sl, None].transpose(-1, -2)
-        ii, jj = kf[sl, :, None], kf[sl, None, :]
-        dd = jj - ii + band
-        flat = torch.where((dd >= 0) & (dd < width), ii * width + dd, dead)
-        _scatter_sum(out, flat.reshape(-1), T.reshape(-1, 6, 6))
+        _scatter_sum(out, plan, T.reshape(-1, 6, 6))
     return out[:dead].view(K, width, 6, 6), E_corr
 
 
@@ -319,14 +395,17 @@ def _band_columns(K, band: int, device):
     return jj.clamp(0, K - 1), (jj >= 0) & (jj < K)
 
 
-def _band_to_dense(S_band, K, band: int):
-    """The dense correction [K, 6, K, 6] from its block band."""
-    jj, ok = _band_columns(K, band, S_band.device)
-    ii = torch.arange(K, device=S_band.device)[:, None].expand_as(jj)
+def _band_to_dense(S_band, K, band: int, plan=None):
+    """The dense correction [K, 6, K, 6] from its block band (plan: of
+    _band_dense_index, made here when None)."""
+    if plan is None:
+        plan = scatter.make_plan(_band_dense_index(K, band, S_band.device),
+                                 K * K)
+    _, ok = _band_columns(K, band, S_band.device)
     vals = torch.where(ok[..., None, None], S_band, 0.0)
     dense = torch.zeros(K * K, 6, 6, dtype=S_band.dtype,
                         device=S_band.device)
-    _scatter_sum(dense, (ii * K + jj).reshape(-1), vals.reshape(-1, 6, 6))
+    _scatter_sum(dense, plan, vals.reshape(-1, 6, 6))
     return dense.view(K, K, 6, 6).permute(0, 2, 1, 3)
 
 
@@ -388,25 +467,26 @@ def _block_jacobi(M, free):
 
 
 def _pcg_camera_solve(U_star, free, meas_kf, W, Vinv, b, cg_iters: int,
-                      cg_tol: float, comm: _Comm = _ONE_DEVICE):
+                      cg_tol: float, comm: _Comm = _ONE_DEVICE, plan=None):
     """Matrix-free block-Jacobi preconditioned CG on the reduced camera
     system S x = b, never forming S: one product is a gather of x by
     measurement, two small contractions and a scatter sum by camera, O(N O)
-    whatever K. meas_kf must lie in [0, K). Over a mesh the scatter side
+    whatever K. meas_kf must lie in [0, K); plan: of meas_kf, made here
+    when None. Over a mesh the scatter side
     of each product is psummed, one [K, 6] per iteration, and the ranks
     iterate in lockstep on the replicated x."""
     Y = W @ Vinv[:, None]                  # [N, O, 6, 3]
     Wt = W.transpose(-1, -2)               # [N, O, 3, 6]
     kf = meas_kf.long()
-    kf_flat = kf.reshape(-1)
+    if plan is None:
+        plan = scatter.make_plan(kf, U_star.shape[0])
     Minv = _block_jacobi(U_star, free)
     fr = free[:, None]
 
     def apply_S(x):
         u = torch.sum((Wt @ x[kf][..., None])[..., 0], dim=1)   # [N, 3]
         corr = (Y @ u[:, None, :, None])[..., 0]                 # [N, O, 6]
-        corr = _scatter_sum(torch.zeros_like(x), kf_flat,
-                            corr.reshape(-1, 6))
+        corr = _scatter_sum(torch.zeros_like(x), plan, corr.reshape(-1, 6))
         corr, = comm.sum((corr,), "solve")
         out = (U_star @ x[..., None])[..., 0] + 1e-9 * x - corr
         return torch.where(fr, out, x)
@@ -503,10 +583,12 @@ def _check_halo_rows(prob: BAProblem, meas_valid, comm: _Comm):
 
 
 def _linearize(prob: BAProblem, cam, R, t, pts, meas_valid, cam_fixed_m,
-               min_sigma_sq, sigma_mode="gather", comm: _Comm = _ONE_DEVICE):
+               min_sigma_sq, sigma_mode="gather", comm: _Comm = _ONE_DEVICE,
+               plan=None):
     """The first half of an LM step (Bundle.cc:209-321) at (R, t, pts):
     robust sigma (exact median or, for sigma_mode "hist", the histogram
-    median), the objective, the ejection mask and the accumulators.
+    median), the objective, the ejection mask and the accumulators (U and
+    eps_a by `plan`, of prob.meas_kf, made here when None).
     Over a mesh the sigma, the objective, U and eps_a are the sums over
     every rank's shard. Returns a dict of tensors."""
     K = R.shape[0]
@@ -540,11 +622,12 @@ def _linearize(prob: BAProblem, cam, R, t, pts, meas_valid, cam_fixed_m,
     B = torch.where(gmask[..., None], B, 0.0)
     At, Bt = A.transpose(-1, -2), B.transpose(-1, -2)
 
-    kf_flat = kf.reshape(-1)
+    if plan is None:
+        plan = scatter.make_plan(kf, K)
     U = _scatter_sum(torch.zeros(K, 6, 6, dtype=dtype, device=device),
-                     kf_flat, (At @ A).reshape(-1, 6, 6))
+                     plan, (At @ A).reshape(-1, 6, 6))
     eps_a = _scatter_sum(torch.zeros(K, 6, dtype=dtype, device=device),
-                         kf_flat, (At @ eps).reshape(-1, 6))
+                         plan, (At @ eps).reshape(-1, 6))
     U, eps_a = comm.cam_rows((U, eps_a), "u_eps")
     return dict(
         A=A, B=B, eps=eps[..., 0], U=U, eps_a=eps_a,
@@ -574,24 +657,29 @@ def _damped(lin, prob: BAProblem, lam):
 
 def _reduced_system(lin, prob: BAProblem, lam, point_block,
                     assembly: str = "scatter", band: int = 16,
-                    comm: _Comm = _ONE_DEVICE):
+                    comm: _Comm = _ONE_DEVICE, plans: _Plans = None):
     """S [6K, 6K] and E [K, 6] of the reduced camera system at damping
     `lam` (Bundle.cc:327-434), with the inverse point blocks Vinv
     [N, 3, 3] the back-substitution needs. assembly "band" sums the block
-    band of half-width `band` and spreads it to dense."""
+    band of half-width `band` and spreads it to dense. plans: the run's
+    _Plans, made here when None."""
     K = prob.cam_R.shape[0]
     dtype, device = lin["V"].dtype, lin["V"].device
     eye6 = torch.eye(6, dtype=dtype, device=device)
     Vinv, Y, U_star, free = _damped(lin, prob, lam)
+    if plans is None:
+        plans = _make_plans(prob.meas_kf, K, point_block, assembly, "chol",
+                            band)
     if assembly == "band":
         S_band, E_corr = _schur_blocks_band(prob.meas_kf, Y, lin["W"],
                                             lin["eps_b"], K, band,
-                                            point_block)
+                                            point_block, plans)
         S_band, E_corr = comm.sum((S_band, E_corr), "solve")
-        S_corr = _band_to_dense(S_band, K, band)
+        S_corr = _band_to_dense(S_band, K, band, plans.band_dense)
     else:
         S_corr, E_corr = _schur_blocks_scatter(prob.meas_kf, Y, lin["W"],
-                                               lin["eps_b"], K, point_block)
+                                               lin["eps_b"], K, point_block,
+                                               plans)
         S_corr, E_corr = comm.sum((S_corr, E_corr), "solve")
     kk = torch.arange(K, device=device)
     S = -S_corr
@@ -608,24 +696,29 @@ def _reduced_system(lin, prob: BAProblem, lam, point_block,
 
 def _cg_camera_update(lin, prob: BAProblem, lam, point_block, solver: str,
                       band: int, cg_iters: int, cg_tol: float,
-                      comm: _Comm = _ONE_DEVICE):
+                      comm: _Comm = _ONE_DEVICE, plans: _Plans = None):
     """(camera update [K, 6], Vinv, free) of the inner iteration at `lam`
     by the CG solvers: "pcg" never forms S, "band_pcg" sums its block
     band first (over a mesh: one psum of the band, or with the halo
     reduction the upper half band through _halo_reduce_gather, then CG on
-    the replicated band with no collective)."""
+    the replicated band with no collective). plans: the run's _Plans, made
+    here when None."""
     K = prob.cam_R.shape[0]
     Vinv, Y, U_star, free = _damped(lin, prob, lam)
+    if plans is None:
+        plans = _make_plans(prob.meas_kf, K, point_block, solver=solver,
+                            band=band)
     if solver == "pcg":
         E_corr, = comm.sum(
-            (_e_corr_scatter(prob.meas_kf, Y, lin["eps_b"], K),), "solve")
+            (_e_corr_scatter(prob.meas_kf, Y, lin["eps_b"], K, plans.kf),),
+            "solve")
         E = torch.where(free[:, None], lin["eps_a"] - E_corr, 0.0)
         upd = _pcg_camera_solve(U_star, free, prob.meas_kf, lin["W"], Vinv,
-                                E, cg_iters, cg_tol, comm)
+                                E, cg_iters, cg_tol, comm, plans.kf)
     else:
         S_band, E_corr = _schur_blocks_band(prob.meas_kf, Y, lin["W"],
                                             lin["eps_b"], K, band,
-                                            point_block)
+                                            point_block, plans)
         if comm.halo:
             S_half, E_corr = comm.cam_rows((S_band[:, band:], E_corr),
                                            "solve")
@@ -681,15 +774,17 @@ def _back_substitute(lin, prob: BAProblem, cam, R, t, pts, cam_upd, Vinv,
 def _solve_and_step(lin, prob: BAProblem, cam, R, t, pts, lam, point_block,
                     update_conv, assembly: str = "scatter",
                     solver: str = "chol", band: int = 16, cg_iters: int = 250,
-                    cg_tol: float = 1e-6, comm: _Comm = _ONE_DEVICE):
+                    cg_tol: float = 1e-6, comm: _Comm = _ONE_DEVICE,
+                    plans: _Plans = None):
     """One inner iteration (Bundle.cc:327-514) at damping `lam`: solve the
     reduced system for the camera update, then _back_substitute. With
-    solver "chol" the result also carries the system (S, E)."""
+    solver "chol" the result also carries the system (S, E). plans: the
+    run's _Plans, made where needed when None."""
     K = prob.cam_R.shape[0]
     extra = {}
     if solver == "chol":
         Sm, E, Vinv, free = _reduced_system(lin, prob, lam, point_block,
-                                            assembly, band, comm)
+                                            assembly, band, comm, plans)
         # ridge=0: the reduced system already carries it. A factorization
         # that fails gives a NaN update, hence a NaN objective and a
         # rejected step.
@@ -698,7 +793,8 @@ def _solve_and_step(lin, prob: BAProblem, cam, R, t, pts, lam, point_block,
         extra = dict(S=Sm, E=E)
     else:
         cam_upd, Vinv, free = _cg_camera_update(
-            lin, prob, lam, point_block, solver, band, cg_iters, cg_tol, comm)
+            lin, prob, lam, point_block, solver, band, cg_iters, cg_tol, comm,
+            plans)
     step = _back_substitute(lin, prob, cam, R, t, pts, cam_upd, Vinv, free,
                             update_conv, comm)
     return dict(step, **extra)
@@ -758,6 +854,11 @@ def bundle_adjust(
     if comm.halo:
         _check_halo_rows(prob, meas_valid, comm)
     cam_fixed_m = prob.cam_fixed[prob.meas_kf.long()]
+    # The scatter sums' plans: the indices do not change between LM
+    # iterations, so they are sorted once here, without the measurements
+    # that are not valid now.
+    plans = _make_plans(prob.meas_kf, prob.cam_R.shape[0], point_block,
+                        assembly, solver, band_halfwidth, meas_valid)
 
     R, t, pts = prob.cam_R, prob.cam_t, prob.points
     ejected = torch.zeros_like(meas_valid)
@@ -769,14 +870,14 @@ def bundle_adjust(
 
     while not converged and counter < max_iters:
         lin = _linearize(prob, cam, R, t, pts, meas_valid, cam_fixed_m,
-                         min_sigma_sq, sigma_mode, comm)
+                         min_sigma_sq, sigma_mode, comm, plans.kf)
         # Inner lambda loop: raise the damping until the objective falls,
         # the update converges or the budget ends.
         while True:
             step = _solve_and_step(lin, prob, cam, R, t, pts, lam,
                                    point_block, update_conv, assembly,
                                    solver, band_halfwidth, cg_iters, cg_tol,
-                                   comm)
+                                   comm, plans)
             HOST_READS["bundle_adjust"] += 1
             worse, better, conv = step["flags"].tolist()
             converged_dev = converged_dev | step["flags"][2]

@@ -21,6 +21,7 @@ import torch
 from visualslam_android_tpu_torch.models import bundle
 from visualslam_android_tpu_torch.ops import fast
 from visualslam_android_tpu_torch.ops import mestimator as me
+from visualslam_android_tpu_torch.ops import scatter
 from visualslam_android_tpu_torch.parallel import mesh as mesh_mod
 from visualslam_android_tpu_torch.parallel import replicated_tracking as rt
 from visualslam_android_tpu_torch.parallel import sharded_ba
@@ -40,10 +41,12 @@ def _sync(device):
 
 def _timed(mesh, fn):
     """fn's result, its wall ms between two device synchronisations, the
-    collectives' payload by site, the host copies and the FAST launches."""
+    collectives' payload by site, the host copies, the FAST launches and
+    the segmented-sum launches."""
     mesh_mod.reset_counters()
     for key in fast.LAUNCHES:
         fast.LAUNCHES[key] = 0
+    scatter.LAUNCHES["segmented_sum"] = 0
     _sync(mesh.device)
     t0 = time.perf_counter()
     out = fn()
@@ -51,7 +54,8 @@ def _timed(mesh, fn):
     ms = 1e3 * (time.perf_counter() - t0)
     return dict(result=out, ms=ms, sites=dict(mesh_mod.COMM_SITES),
                 host_copies=dict(mesh_mod.HOST_COPIES),
-                launches=dict(fast.LAUNCHES))
+                launches=dict(fast.LAUNCHES),
+                scatter_launches=dict(scatter.LAUNCHES))
 
 
 def bundle_adjust(mesh, prob, cam, mode="psum", warmup=False, **kwargs):
