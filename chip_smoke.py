@@ -22,7 +22,7 @@ ranks sharing the card over gloo.
 1. device: requires CUDA; prints the card's name and power limit;
 2. build: compiles the CUDA kernels (csrc/fast.cu, csrc/segsum.cu), one
    nvcc per source, started together, and prints what ptxas reports for
-   each;
+   each kernel (registers, spill bytes); a spill fails it;
 3. kernels vs plain, on an 800x480 frame's four pyramid levels, each timed
    with CUDA events (median of 50), eager and as CUDA-graph replays (device
    time), beside its bound (bytes moved over the memory rate, or f32
@@ -43,13 +43,20 @@ ranks sharing the card over gloo.
    camera index and the first point chunk's camera-pair sum, at 32 and at
    128 keyframe slots, and at 128 slots the chunk's block band; each on
    the indices and kept terms bundle_adjust's plans take, with seeded
-   values onto a seeded out: within 1e-5 of each row's sum of |terms| of
-   the plain version, two launches bit-equal, rows without terms
-   untouched; timed as CUDA-graph replays (median of 50) beside its
-   bound, the plain version and the two library calls that compute the
-   same sum (index_put_(accumulate=True) and index_add_). Every path that
-   runs bundle adjustment (phases 7-12, 14-16, and 17's ranks) must launch
-   it; its launches are counted per path;
+   values onto a seeded out: bit-equal to the order-exact plain version
+   (segmented_sum_ordered_reference), to the kernel's first version
+   (segmented_sum_rowblock, one block per row) and to the kernel's other
+   path, within 1e-5 of each row's sum of |terms| of the plain version in
+   index order, two launches bit-equal, rows without terms untouched; no
+   kernel of segsum.cu spills registers (ptxas's report, printed in phase
+   2); timed as CUDA-graph replays (median of 50) against the first
+   version in turns (first, new, other path twice, new, first), for the
+   point chunks also with the L2 flushed by a 64 MB read before each
+   launch, beside its bound, the plain version and the two library calls
+   that compute the same sum (index_put_(accumulate=True) and
+   index_add_). Every path that runs bundle adjustment (phases 7-12,
+   14-16, and 17's ranks) must launch it; its launches are counted per
+   path, and by width (F = 6 / 36) and kernel path (short / long);
 4. slice: builds the 2048-slot fixed map of ``bench.py`` on the card,
    renders its 100 chained frames there and runs ``frame_step`` over them,
    chaining pose, velocity, SBI and map; every frame must find more than
@@ -415,12 +422,15 @@ H100_BYTES_PER_S = 3.35e12
 H100_F32_OPS_PER_S = 67e12
 
 
-# Phase 18: the segmented-sum kernel against its plain version. The two
-# add each row's terms in different orders (a fixed tree of per-thread
-# partial sums, and one after another): each element within SEGSUM_RTOL of
-# its row's sum of |terms| (f32 rounding of up to ~1000 terms).
+# Phase 18: the segmented-sum kernel against its plain versions. The
+# order-exact one and the kernel's first version make the same additions:
+# bit-equal. The plain version in index order adds each row's terms in
+# another order (one after another, against chains and a tree): each
+# element within SEGSUM_RTOL of its row's sum of |terms| (f32 rounding of
+# up to ~1000 terms).
 SEGSUM_RTOL = 1e-5
 SEGSUM_SEED = 18
+SEGSUM_FLUSH_BYTES = 64 << 20  # read between launches to flush the L2
 
 class SmokeFailure(RuntimeError):
     pass
@@ -1545,15 +1555,57 @@ def segsum_cases(config, bundle, cam_ops, lie, synthetic, device):
     return cases
 
 
+def ptxas_resources(log):
+    """{kernel: (registers, spill store bytes, spill load bytes)} from a
+    build log of nvcc -Xptxas -v."""
+    found, name, spills = {}, None, (0, 0)
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif "spill stores" in line:
+            words = line.replace(",", " ").split()
+            spills = (int(words[words.index("spill") - 2]),
+                      int(words[words.index("loads") - 3]))
+        elif "Used" in line and "registers" in line and name:
+            words = line.replace(",", " ").split()
+            found[name] = (int(words[words.index("registers") - 1]),
+                           *spills)
+            name, spills = None, (0, 0)
+    return found
+
+
+def l2_flush(scratch):
+    """A call that reads `scratch` (past the 50 MB L2) into one sum: it
+    leaves the L2 full of clean lines, so no write-back of its own is
+    charged to what runs after it."""
+    total = scratch.new_zeros(())
+    return lambda: torch.sum(scratch, 0, out=total)
+
+
+def flushed_ms(fn, flush, flush_ms):
+    """Device ms of one call of fn that finds the L2 flushed: CUDA-graph
+    replays of (flush, then fn), less flush_ms, flush's own time."""
+    def flush_then():
+        flush()
+        fn()
+    return cuda_ms(flush_then)[1] - flush_ms
+
+
 def phase_segsum(device, card, config, bundle, scatter, cam_ops, lie,
                  synthetic):
-    """Phase 18: segmented_sum_kernel against its plain version on the
-    card at phase 9's shapes (segsum_cases), on seeded values onto a
-    seeded out: each element within SEGSUM_RTOL of its row's sum of
-    |terms|, two launches bit-equal, rows without terms untouched; then
-    timed beside its bound, the plain version and the two library calls
-    that compute the same sum. Returns the cases' figures."""
+    """Phase 18: the segmented-sum kernel on the card at phase 9's shapes
+    (segsum_cases), on seeded values onto a seeded out: bit-equal to the
+    order-exact plain version and to the first version of the kernel
+    (segmented_sum_rowblock) and to the kernel's other path, each element
+    within SEGSUM_RTOL of its row's sum of |terms| of the plain version in
+    index order, two launches bit-equal, rows without terms untouched;
+    then timed against the first version in turns (first, new, the other
+    path twice, new, first), with the L2 warm and, for the chunk cases,
+    flushed (first, new, new, first), beside its bound, the plain version
+    and the two library calls that compute the same sum. Returns the
+    cases' figures."""
     gen = torch.Generator(device=device).manual_seed(SEGSUM_SEED)
+    flush = l2_flush(torch.ones(SEGSUM_FLUSH_BYTES // 4, device=device))
     rows = []
     for label, index, n_rows, shape, keep in segsum_cases(
             config, bundle, cam_ops, lie, synthetic, device):
@@ -1564,8 +1616,15 @@ def phase_segsum(device, card, config, bundle, scatter, cam_ops, lie,
         keep = keep.reshape(-1)
         kept_index, kept_src = index[keep], src[keep]
         n_kept = kept_index.numel()
+        path = scatter.path_for(n_terms, n_rows)
         first = scatter.segmented_sum(out0.clone(), plan, src)
         second = scatter.segmented_sum(out0.clone(), plan, src)
+        ordered = scatter.segmented_sum_ordered_reference(out0.clone(), plan,
+                                                          src)
+        rowblock = scatter.segmented_sum_rowblock(out0.clone(), plan, src)
+        other = next(p for p in scatter.PATHS if p != path)
+        other_path = out0.clone()
+        scatter._launch(other_path, plan, src, path=other)
         plain = scatter.segmented_sum_reference(out0.clone(), plan, src)
         abs_sum = scatter.segmented_sum_reference(
             torch.zeros_like(out0), plan, src.abs())
@@ -1573,8 +1632,14 @@ def phase_segsum(device, card, config, bundle, scatter, cam_ops, lie,
         hit = plan.row_start[1:] > plan.row_start[:-1]
         err = (first - plain).abs()
         max_err = float(err.max())
-        check(torch.equal(first.view(torch.int32), second.view(torch.int32)),
-              f"segmented_sum, {label}: two launches differ")
+        bits = first.view(torch.int32)
+        for that, what in ((second, "a second launch"),
+                            (ordered, "the order-exact plain version"),
+                            (rowblock, "the first version of the kernel"),
+                            (other_path, f"the kernel's {other} path")):
+            check(torch.equal(bits, that.view(torch.int32)),
+                  f"segmented_sum, {label}: differs from {what} at "
+                  f"{int((bits != that.view(torch.int32)).sum())} values")
         check(bool((err <= SEGSUM_RTOL * abs_sum).all()),
               f"segmented_sum, {label}: {max_err} from the plain version, "
               f"beyond {SEGSUM_RTOL} of a row's sum of |terms|")
@@ -1583,7 +1648,32 @@ def phase_segsum(device, card, config, bundle, scatter, cam_ops, lie,
               f"segmented_sum, {label}: a row without terms changed")
         n_hit = int(hit.sum())
         buf = torch.zeros_like(out0)
-        eager, ms = cuda_ms(lambda: scatter.segmented_sum(buf, plan, src))
+
+        def new():
+            scatter.segmented_sum(buf, plan, src)
+
+        def old():
+            scatter.segmented_sum_rowblock(buf, plan, src)
+
+        def alt_path():
+            scatter._launch(buf, plan, src, path=other)
+
+        # In turns: first version, new, the other path twice, new, first.
+        old_a = cuda_ms(old)[1]
+        eager, new_a = cuda_ms(new)
+        other_ms = [cuda_ms(alt_path)[1] for _ in range(2)]
+        new_b = cuda_ms(new)[1]
+        old_b = cuda_ms(old)[1]
+        ms, old_ms = (new_a + new_b) / 2, (old_a + old_b) / 2
+        flushed = None
+        if "chunk" in label:
+            flush_ms = cuda_ms(flush)[1]
+            turns = [flushed_ms(fn, flush, flush_ms)
+                     for fn in (old, new, new, old)]
+            flushed = dict(flush_ms=flush_ms, old_turns=[turns[0], turns[3]],
+                           new_turns=[turns[1], turns[2]],
+                           ms=(turns[1] + turns[2]) / 2,
+                           old_ms=(turns[0] + turns[3]) / 2)
         plain_eager, plain_ms = cuda_ms(
             lambda: scatter.segmented_sum_reference(buf, plan, src))
         # The library calls that compute the same sum: over the kept terms.
@@ -1598,20 +1688,35 @@ def phase_segsum(device, card, config, bundle, scatter, cam_ops, lie,
         bound, by = bound_ms(n_bytes, n_kept * width)
         row = dict(case=label, terms=n_terms, kept=n_kept, rows=n_rows,
                    rows_hit=n_hit, width=width,
-                   threads=scatter.threads_for(n_terms, n_rows),
-                   max_abs_err=max_err, ms=ms, eager_ms=eager,
+                   threads=scatter.threads_for(n_terms, n_rows), path=path,
+                   max_abs_err=max_err, ms=ms, ms_turns=[new_a, new_b],
+                   eager_ms=eager, rowblock_ms=old_ms,
+                   rowblock_ms_turns=[old_a, old_b],
+                   other_path=other,
+                   other_path_ms_turns=other_ms, flushed_l2=flushed,
                    plain_ms=plain_ms, plain_eager_ms=plain_eager,
                    bound_ms=bound, bound_by=by, bytes=n_bytes,
-                   index_put_ms=put_ms, index_add_ms=add_ms)
+                   share_of_bound=bound / ms, index_put_ms=put_ms,
+                   index_add_ms=add_ms)
         rows.append(row)
+        alt_text = (f", the {other} path {other_ms[0]:.5f} / "
+                    f"{other_ms[1]:.5f} ms")
+        cold = (f"; L2 flushed (a {SEGSUM_FLUSH_BYTES >> 20} MB read, "
+                f"{flushed['flush_ms']:.5f} ms, taken off): "
+                f"{flushed['ms']:.5f} ms against the first version's "
+                f"{flushed['old_ms']:.5f}" if flushed else "")
         print(f"segmented_sum, {label}: {n_kept} of {n_terms} terms kept, "
               f"{width} values each, into {n_rows} rows ({n_hit} hit), "
-              f"{row['threads']} threads a "
-              f"row; device kernel {ms:.5f} ms (eager call {eager:.5f}), "
-              f"bound {bound:.5f} ms by {by} ({n_bytes} B), plain "
+              f"{row['threads']} threads a row, {path} path; device kernel "
+              f"{ms:.5f} ms ({new_a:.5f} / {new_b:.5f}; eager call "
+              f"{eager:.5f}) against the first version's {old_ms:.5f} "
+              f"({old_a:.5f} / {old_b:.5f}): {old_ms / ms:.2f}x"
+              f"{alt_text}; bound {bound:.5f} ms by {by} ({n_bytes} B, "
+              f"{100 * bound / ms:.1f}% of it){cold}; plain "
               f"{plain_ms:.5f} ms, index_put_(accumulate=True) {put_ms:.5f} "
-              f"ms, index_add_ {add_ms:.5f} ms; max "
-              f"|kernel - plain| {max_err:.3e}, two launches bit-equal  "
+              f"ms, index_add_ {add_ms:.5f} ms; max |kernel - plain| "
+              f"{max_err:.3e}, bit-equal to the order-exact plain version, "
+              f"the first version, the other path and a second launch  "
               f"[{card}]")
     return rows
 
@@ -2874,6 +2979,7 @@ def phase_sharded(device, card, config, sm, cam, scene, frames, poses,
     of `runs`, held against the single-device port function on `device`.
     Returns (the parent's FAST launches of the path, the ranks' FAST and
     segmented-sum launches summed over ranks and runs)."""
+    from visualslam_android_tpu_torch.ops import scatter
     from visualslam_android_tpu_torch.parallel import mesh as mesh_mod
     from visualslam_android_tpu_torch.parallel import rank_programs
     from visualslam_android_tpu_torch.parallel import sharded_ba
@@ -2955,10 +3061,10 @@ def phase_sharded(device, card, config, sm, cam, scene, frames, poses,
                             for r in rs for case in r.values()
                             if "launches" in case)
                      for k in fast.LAUNCHES}
-    rank_launches["segmented_sum"] = sum(
-        case["scatter_launches"]["segmented_sum"]
+    rank_launches.update({k: sum(
+        case["scatter_launches"][k]
         for rs in results.values() for r in rs for case in r.values()
-        if "scatter_launches" in case)
+        if "scatter_launches" in case) for k in scatter.LAUNCHES})
 
     # The single-device references on `device`.
     p128_d, c128_d = p128.to(device), c128.to(device)
@@ -3272,9 +3378,13 @@ def main():
     print(f"build: {', '.join(libs)} in {time.perf_counter() - t_build:.3f} "
           f"s")
     for source in ("fast.cu", "segsum.cu"):
-        for line in cuda_build.build_log(source).splitlines():
-            if "registers" in line or "Compiling entry" in line:
-                print(f"  {source}: {line.strip()}")
+        resources = ptxas_resources(cuda_build.build_log(source))
+        for kernel, (regs, stores, loads) in resources.items():
+            print(f"  {source}: {kernel}: {regs} registers, spill stores "
+                  f"{stores} B, spill loads {loads} B")
+        check(resources, f"no ptxas report in {source}'s build log")
+        check(not any(st or ld for _, st, ld in resources.values()),
+              f"a kernel of {source} spills registers: {resources}")
 
     # ---- 3. kernels vs plain ----
     levels, thresholds = level_images(device, fixtures, synthetic, image)
@@ -3314,14 +3424,17 @@ def main():
                                scatter, cam_ops, lie, synthetic)
 
     # The segmented-sum launches of each path: set to 0 just before the
-    # path runs, read just after.
-    seg_by_path = {}
+    # path runs, read just after; and by width and kernel path.
+    seg_by_path, seg_kinds_by_path = {}, {}
 
     @contextlib.contextmanager
     def seg_path(name):
-        scatter.LAUNCHES["segmented_sum"] = 0
+        for key in scatter.LAUNCHES:
+            scatter.LAUNCHES[key] = 0
         yield
         seg_by_path[name] = scatter.LAUNCHES["segmented_sum"]
+        seg_kinds_by_path[name] = {k: n for k, n in scatter.LAUNCHES.items()
+                                   if k != "segmented_sum"}
 
     # ---- 4. the tracking slice on the fixture map ----
     config = fixtures.full_config()
@@ -3432,6 +3545,9 @@ def main():
     del frames, sm
 
     seg_by_path["sharded_ranks"] = sharded_rank_launches["segmented_sum"]
+    seg_kinds_by_path["sharded_ranks"] = {
+        k: n for k, n in sharded_rank_launches.items()
+        if k.startswith("segmented_sum ")}
 
     # ---- 7. the stereo bootstrap, then tracking on its map ----
     with seg_path("bootstrap"):
@@ -3507,6 +3623,13 @@ def main():
 
     # Every path that runs bundle adjustment went through the kernel.
     print(f"segmented_sum launches by path: {seg_by_path}")
+    seg_kinds = {k: sum(kinds[k] for kinds in seg_kinds_by_path.values())
+                 for k in scatter.LAUNCHES if k != "segmented_sum"}
+    print(f"segmented_sum launches by width and kernel path: {seg_kinds}; "
+          f"by path: {seg_kinds_by_path}")
+    check(sum(seg_kinds.values()) == sum(seg_by_path.values()),
+          f"segmented_sum launches by kind {seg_kinds} do not add up to "
+          f"{sum(seg_by_path.values())}")
     for path, n in seg_by_path.items():
         check(n > 0, f"the {path} path launched segmented_sum no time: "
                      f"{seg_by_path}")
@@ -3566,8 +3689,10 @@ def main():
                      ":207, :242, :390, :583, :586), no Pallas kernel",
          "launches": sum(seg_by_path.values()),
          "launches_by_path": seg_by_path,
+         "launches_by_width_and_kernel_path": seg_kinds,
          "max_abs_err": max(r["max_abs_err"] for r in segsum_rows),
-         "ms": seg_main["ms"], "plain_ms": seg_main["plain_ms"],
+         "ms": seg_main["ms"], "rowblock_ms": seg_main["rowblock_ms"],
+         "plain_ms": seg_main["plain_ms"],
          "bound_ms": seg_main["bound_ms"], "bound_by": seg_main["bound_by"],
          "library_ms": seg_main["index_put_ms"],
          "library_call": "index_put_((index,), src, accumulate=True)",
@@ -3576,7 +3701,15 @@ def main():
          "note": "bundle_adjust's scatter sums (U, eps_a, E_corr, the Schur "
                  "pairs, the band, band-to-dense, the CG product) through "
                  "ops/scatter.segmented_sum, one launch per sum; "
-                 "sharded_ranks: phase 17's ranks, summed"},
+                 "redesigned for Hopper: where the rows are many, a group "
+                 "of T / 32 warps a row staging each step's terms into "
+                 "shared memory by coalesced cp.async (short path); where "
+                 "they are few, groups over (row, slice of the values) "
+                 "(long path); the first version's additions bit for bit; "
+                 "ms: the redesign, rowblock_ms: "
+                 "the first version (segmented_sum_rowblock, one block per "
+                 "row) in the same run, in turns; sharded_ranks: phase "
+                 "17's ranks, summed"},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

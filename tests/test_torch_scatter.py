@@ -3,9 +3,13 @@ its wrapper runs the plain version: against index_add_ (bit for bit) and
 the JAX package's `.at[].add` (f32 tolerance) at each bundle-adjustment
 call site's shape, rows without terms, the plan's construction, and whole
 bundle_adjust runs with plans against the same runs summed the old way.
+The order-exact plain version (segmented_sum_ordered_reference), which
+makes the kernel's additions in the kernel's order: on a row whose bits
+depend on that order, at each call site, and as the sum of whole
+bundle_adjust runs.
 
 The kernel itself (csrc/segsum.cu) runs only on a CUDA card; chip_smoke.py
-holds it against this plain version there.
+holds it against both plain versions there.
 """
 
 import jax.numpy as jnp
@@ -18,6 +22,7 @@ from visualslam_android_tpu_torch.config import CameraConfig
 from visualslam_android_tpu_torch.models import bundle as tb
 from visualslam_android_tpu_torch.ops import camera as tcam
 from visualslam_android_tpu_torch.ops import lie as tlie
+from visualslam_android_tpu_torch.ops import mestimator as tme
 from visualslam_android_tpu_torch.ops import scatter
 
 torch.set_num_threads(2)
@@ -184,6 +189,20 @@ def test_threads_for_depends_on_the_mean_row(n_terms, n_rows, threads):
     assert scatter.threads_for(n_terms, n_rows) == threads
 
 
+@pytest.mark.parametrize("n_terms,n_rows,path", [
+    (1024 * 256, 128 * 128, "short"), (1024 * 256, 65 * 65, "short"),
+    (1024 * 256, 32 * 32, "short"), (2048 * 16, 32, "long"),
+    (2048 * 16, 128, "long"), (4096 * 16, 512, "long"), (100, 200, "long")])
+def test_path_for_takes_the_short_path_where_rows_fill_1024_warps(
+        n_terms, n_rows, path):
+    """The kernel's path depends on the shapes alone: the pair and band
+    chunks (many rows) take the short path, U and the CG product at 32-512
+    keyframe slots the long one."""
+    assert scatter.path_for(n_terms, n_rows) == path
+    assert (n_rows * scatter.threads_for(n_terms, n_rows) // 32
+            >= scatter.SHORT_MIN_WARPS) == (path == "short")
+
+
 def _odometry_problem(seed, n_cams=10, n_pts=160, o_max=6):
     """A small bundle problem from seeded numpy draws: cameras along x,
     each point seen by up to o_max consecutive cameras from a random first
@@ -272,3 +291,140 @@ def test_bundle_adjust_with_plans_is_bit_equal_to_index_add(
     assert float(tb.reprojection_rms(prob, cam, new.cam_R, new.cam_t,
                                      new.points)) < float(
         tb.reprojection_rms(prob, cam))
+
+
+def _chains_then_tree(terms, T):
+    """The kernel's order on one row, by loops over float32 scalars: chain
+    t sums terms t, t + T, ... from 0, then the tree (slot u < s takes
+    slot u + s at s = T/2, ..., 1)."""
+    chains = [np.float32(0.0)] * T
+    for k, x in enumerate(terms):
+        chains[k % T] = np.float32(chains[k % T] + x)
+    s = T // 2
+    while s >= 1:
+        for u in range(s):
+            chains[u] = np.float32(chains[u] + chains[u + s])
+        s //= 2
+    return chains[0]
+
+
+@pytest.mark.parametrize("T", [32, 64])
+def test_ordered_reference_adds_chains_then_the_tree(T):
+    """A row whose sum depends on the order: 1e8 and -1e8 on chain 0
+    cancel, 1.0, 0.5, 0.25 and 0.125 sit on chains 1 and 2. Chains then
+    tree give 1.875 exactly; one term after another, 1e8 swallows 1.0 and
+    0.5 (its ulp is 8) and gives 0.375. The row's terms lie interleaved
+    with another row's in src, so the plan's order is what places them."""
+    row = np.zeros(T + 3, np.float32)
+    row[[0, 1, 2, T, T + 1, T + 2]] = [1e8, 1.0, 0.5, -1e8, 0.25, 0.125]
+    assert _chains_then_tree(row, T) == np.float32(1.875)
+    assert np.float32(np.cumsum(row, dtype=np.float32)[-1]) == \
+        np.float32(0.375)
+    rng = np.random.default_rng(T)
+    other = rng.normal(size=T + 3).astype(np.float32)
+    values = np.empty(2 * (T + 3), np.float32)
+    values[0::2], values[1::2] = row, other
+    index = torch.as_tensor(np.tile([2, 0], T + 3))
+    src = torch.as_tensor(np.repeat(values[:, None], 6, 1))
+    out0 = torch.zeros(3, 6)
+    out0[1] = -0.0
+    plan = scatter.make_plan(index, 3)
+    got = scatter.segmented_sum_ordered_reference(out0.clone(), plan, src,
+                                                  T)
+    assert torch.all(got[2] == 1.875)
+    assert torch.all(got[0] == _chains_then_tree(other, T))
+    assert torch.equal(got[1].view(torch.int32), out0[1].view(torch.int32))
+    # The CPU wrapper adds one term after another, as index_add_ does.
+    plain = scatter.segmented_sum(out0.clone(), plan, src)
+    assert torch.all(plain[2] == 0.375)
+    # T defaults to the kernel's: threads_for(2 (T + 3), 3).
+    assert scatter.threads_for(2 * (T + 3), 3) == 32
+    default = scatter.segmented_sum_ordered_reference(out0.clone(), plan,
+                                                      src)
+    at_32 = scatter.segmented_sum_ordered_reference(out0.clone(), plan, src,
+                                                    32)
+    assert torch.equal(default.view(torch.int32), at_32.view(torch.int32))
+
+
+@pytest.mark.parametrize("site", SITES)
+def test_ordered_reference_matches_jax_at_each_site(site):
+    """The order-exact plain version, at the kernel's T for each bundle
+    site's shape, against JAX's `.at[].add`, which adds in another order:
+    each element within 1e-5 of the row's sum of |terms| and |old value|
+    (f32 rounding over at most ~100 additions); rows without terms keep
+    their bits; and with every row of the table long enough to fill the
+    chains, bit for bit the loops of _chains_then_tree."""
+    rng = np.random.default_rng(100 + SITES.index(site))
+    index, n_rows, F = _site(site, rng)
+    shape = (6,) if F == 6 else (6, 6)
+    src = torch.as_tensor(rng.normal(size=(index.numel(), *shape))
+                          .astype(np.float32))
+    out0 = torch.as_tensor(rng.normal(size=(n_rows, *shape))
+                           .astype(np.float32))
+    plan = scatter.make_plan(index, n_rows)
+    got = scatter.segmented_sum_ordered_reference(out0.clone(), plan, src)
+    jax_sum = np.asarray(jnp.asarray(out0.numpy()).at[index.numpy()].add(
+        src.numpy()))
+    bound = np.abs(out0.numpy()).astype(np.float64)
+    np.add.at(bound, index.numpy(), np.abs(src.numpy()))
+    assert np.all(np.abs(got.numpy() - jax_sum) <= 1e-5 * bound)
+    hit = torch.zeros(n_rows, dtype=torch.bool)
+    hit[index] = True
+    assert torch.equal(got[~hit].view(torch.int32),
+                       out0[~hit].view(torch.int32))
+    T = scatter.threads_for(index.numel(), n_rows)
+    flat_src = src.reshape(index.numel(), F).numpy()
+    flat_got = got.reshape(n_rows, F).numpy()
+    for r in np.flatnonzero(hit.numpy())[:8]:
+        terms = flat_src[index.numpy() == r]
+        for f in range(F):
+            want = np.float32(out0.reshape(n_rows, F)[r, f].item()
+                              + _chains_then_tree(terms[:, f], T))
+            assert flat_got[r, f] == want
+
+
+def _objective_at(prob, cam, res, sigma_sq):
+    """The robust objective of a result at a given sigma^2 (Tukey scores
+    plus one per ejected measurement)."""
+    sp, valid = tb._sanitized(prob.replace(meas_valid=res.meas_valid))
+    _, _, err_sq, z_bad = tb._project_all(cam, res.cam_R, res.cam_t,
+                                          res.points, sp)
+    score = tme.objective_score(err_sq, sigma_sq)
+    return float(torch.sum(torch.where(valid & ~z_bad, score, 0.0))
+                 + res.outlier_meas.sum())
+
+
+@pytest.mark.parametrize("assembly,solver", [
+    ("scatter", "chol"), ("band", "chol"), ("band", "band_pcg"),
+    ("scatter", "pcg")])
+def test_bundle_adjust_in_the_kernels_order_lands_on_the_sequential_run(
+        monkeypatch, assembly, solver):
+    """The card's order on the CPU: a 3-iteration bundle_adjust with every
+    scatter sum made by the order-exact plain version ends near the same
+    run summed one term after another (the CPU wrapper's index_add_
+    order): within 1% in rms and 1e-4 relative in objective, both at the
+    sequential run's sigma. The two add the same terms in other orders, so
+    each sum parts in its last bits; three LM steps carry that far below
+    these bounds unless a step's or an ejection's decision flips, which is
+    what the bounds would catch."""
+    prob, cam = _odometry_problem(11)
+    kw = dict(max_iters=3, point_block=64, assembly=assembly, solver=solver,
+              band_halfwidth=6, cg_iters=30)
+    seq = tb.bundle_adjust(prob, cam, **kw)
+    calls = []
+
+    def ordered(out, plan, src):
+        calls.append(plan.n_rows)
+        return scatter.segmented_sum_ordered_reference(out, plan, src)
+
+    monkeypatch.setattr(tb, "_scatter_sum", ordered)
+    card = tb.bundle_adjust(prob, cam, **kw)
+    assert calls
+    rms = [float(tb.reprojection_rms(prob, cam, r.cam_R, r.cam_t, r.points))
+           for r in (seq, card)]
+    obj = [_objective_at(prob, cam, r, seq.sigma_squared)
+           for r in (seq, card)]
+    assert abs(rms[1] - rms[0]) <= 0.01 * rms[0], rms
+    assert abs(obj[1] - obj[0]) <= 1e-4 * obj[0], obj
+    assert int(card.accepted) >= 1
+    assert rms[1] < float(tb.reprojection_rms(prob, cam))

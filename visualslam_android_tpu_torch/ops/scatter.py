@@ -13,12 +13,20 @@ most of the table's slots are such, all with one camera index, which would
 make one row hold most of the terms.
 
 On a CUDA tensor the wrapper launches the hand-written kernel of
-``csrc/segsum.cu`` (``segmented_sum_kernel``), which adds each row's terms
-in a fixed order without atomics, so a run repeats itself bit for bit; an
-error from its build or launch propagates. On a CPU tensor it runs the plain
-version, ``segmented_sum_reference``: ``index_add_`` over the sorted index,
-which adds each row's terms in their original order (the sort is stable),
-bit for bit what ``index_add_`` over the unsorted index gives.
+``csrc/segsum.cu``, which adds each row's terms in a fixed order without
+atomics, so a run repeats itself bit for bit; an error from its build or
+launch propagates. The order: T = ``threads_for(M, R)`` chains, chain t
+summing the row's terms t, t + T, ... one after another from 0.0, then a
+tree over the chains (at level s = T/2, ..., 1, slot u < s takes slot
+u + s), then the result added to the row. The kernel takes one of two
+paths by the shapes (``path_for``: many rows, a group of T / 32 warps a
+row staging its terms through shared memory; few rows, groups over (row,
+slice of the values)), both making exactly these additions;
+``segmented_sum_ordered_reference`` makes them with elementwise PyTorch
+adds, so it gives the kernel's bits. On a CPU tensor the wrapper runs
+``segmented_sum_reference``: ``index_add_`` over the sorted index, which
+adds each row's terms in their original order (the sort is stable), bit
+for bit what ``index_add_`` over the unsorted index gives.
 
 This replaces no Pallas kernel: it is the card's form of the JAX package's
 ``.at[].add`` in ``models/bundle.py``.
@@ -36,13 +44,31 @@ import torch
 from visualslam_android_tpu_torch.ops import cuda_build
 from visualslam_android_tpu_torch.utils.tensors import TensorTree
 
-# Kernel launches in this process: the wrapper adds one where it has
-# launched its kernel, and nowhere else (as ops/fast.LAUNCHES).
-LAUNCHES = {"segmented_sum": 0}
-
 # Values per row (F) the kernel takes: the 6-vectors and the 6x6 blocks.
 KERNEL_WIDTHS = (6, 36)
 MAX_THREADS = 256
+# The kernel's two paths (their codes in csrc/segsum.cu): "short", a group
+# of T / 32 warps a row through shared memory, where the rows give at
+# least SHORT_MIN_WARPS warps; else "long", groups over (row, slice of the
+# values), which spreads few long rows over the card.
+PATHS = ("short", "long")
+SHORT_MIN_WARPS = 1024
+_PATH_CODES = {"short": 1, "long": 2}
+# Bytes of src's alignment the short path's cp.async pieces need, by F.
+_SHORT_ALIGN = {36: 16, 6: 8}
+
+# Kernel launches in this process: the wrapper adds one where it has
+# launched its kernel, and nowhere else (as ops/fast.LAUNCHES); under
+# "segmented_sum" all of them, under launch_kind(F, path) those of one
+# width and path.
+LAUNCHES = {"segmented_sum": 0}
+
+
+def launch_kind(width: int, path: str) -> str:
+    return f"segmented_sum F={width} {path}"
+
+
+LAUNCHES.update({launch_kind(w, p): 0 for w in KERNEL_WIDTHS for p in PATHS})
 
 _SOURCE = "segsum.cu"
 
@@ -92,14 +118,23 @@ def threads_for(n_terms: int, n_rows: int) -> int:
     return threads
 
 
+def path_for(n_terms: int, n_rows: int) -> str:
+    """The kernel's path for these shapes: "short" where the rows give at
+    least SHORT_MIN_WARPS warps, else "long"."""
+    warps = n_rows * threads_for(n_terms, n_rows) // 32
+    return "short" if warps >= SHORT_MIN_WARPS else "long"
+
+
 @functools.lru_cache(maxsize=None)
 def _library():
     lib = cuda_build.load(_SOURCE)
-    lib.segmented_sum.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-    ]
+    pointers = [ctypes.c_void_p] * 4
+    lib.segmented_sum.argtypes = pointers + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p]
+    lib.segmented_sum_rowblock.argtypes = pointers + [
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.segmented_sum.restype = ctypes.c_int
+    lib.segmented_sum_rowblock.restype = ctypes.c_int
     return lib
 
 
@@ -128,13 +163,12 @@ def _check(out, plan: Plan, src):
         raise ValueError("segmented_sum takes tensors of one device")
 
 
-def segmented_sum(out, plan: Plan, src):
-    """out[index[m]] += src[m] for every m, in place; returns out. CUDA
-    tensors go through the kernel, CPU tensors through
-    segmented_sum_reference."""
-    _check(out, plan, src)
-    if out.device.type == "cpu":
-        return segmented_sum_reference(out, plan, src)
+def _launch(out, plan: Plan, src, rowblock=False, path=None):
+    """Launch csrc/segsum.cu's kernel on checked CUDA tensors: on `path`
+    (default path_for's; a src not aligned for the short path's pieces
+    takes the long one), or (rowblock) the first version, the yardstick.
+    Returns the path launched (None on an empty sum, or for rowblock), or
+    raises."""
     width = math.prod(out.shape[1:])
     if width not in KERNEL_WIDTHS:
         raise ValueError(f"segmented_sum's kernel takes rows of "
@@ -143,17 +177,48 @@ def segmented_sum(out, plan: Plan, src):
         raise ValueError("segmented_sum adds into a contiguous out")
     n_rows, n_terms = out.shape[0], src.shape[0]
     if n_terms == 0 or n_rows == 0:
-        return out
+        return None
     src = src.contiguous()
+    pointers = (out.data_ptr(), src.data_ptr(), plan.perm.data_ptr(),
+                plan.row_start.data_ptr())
+    threads = threads_for(n_terms, n_rows)
+    path = path_for(n_terms, n_rows) if path is None else path
+    if path == "short" and src.data_ptr() % _SHORT_ALIGN[width]:
+        path = "long"
     with torch.cuda.device(out.device):
         stream = torch.cuda.current_stream(out.device).cuda_stream
-        err = _library().segmented_sum(
-            out.data_ptr(), src.data_ptr(), plan.perm.data_ptr(),
-            plan.row_start.data_ptr(), n_rows, width,
-            threads_for(n_terms, n_rows), stream)
+        if rowblock:
+            path = None
+            err = _library().segmented_sum_rowblock(
+                *pointers, n_rows, width, threads, stream)
+        else:
+            err = _library().segmented_sum(
+                *pointers, n_rows, width, threads, _PATH_CODES[path], stream)
     if err != 0:
         raise RuntimeError(f"segmented_sum launch failed: cudaError_t {err}")
-    LAUNCHES["segmented_sum"] += 1
+    return path
+
+
+def segmented_sum(out, plan: Plan, src):
+    """out[index[m]] += src[m] for every m, in place; returns out. CUDA
+    tensors go through the kernel, CPU tensors through
+    segmented_sum_reference."""
+    _check(out, plan, src)
+    if out.device.type == "cpu":
+        return segmented_sum_reference(out, plan, src)
+    path = _launch(out, plan, src)
+    if path is not None:
+        LAUNCHES["segmented_sum"] += 1
+        LAUNCHES[launch_kind(math.prod(out.shape[1:]), path)] += 1
+    return out
+
+
+def segmented_sum_rowblock(out, plan: Plan, src):
+    """The kernel's first version (one block per row), which makes the
+    same additions: a yardstick that only chip_smoke.py launches, on CUDA
+    tensors; not counted in LAUNCHES."""
+    _check(out, plan, src)
+    _launch(out, plan, src, rowblock=True)
     return out
 
 
@@ -164,3 +229,65 @@ def segmented_sum_reference(out, plan: Plan, src):
     spare = torch.cat([out, out.new_zeros(1, *out.shape[1:])])
     spare.index_add_(0, plan.sorted_index, src.index_select(0, plan.perm))
     return out.copy_(spare[:-1])
+
+
+# Elements of the zero-padded [rows, steps, T, F] tensor that
+# segmented_sum_ordered_reference builds at a time.
+_ORDERED_GROUP_ELEMENTS = 1 << 24
+
+
+def segmented_sum_ordered_reference(out, plan: Plan, src, threads=None):
+    """Plain PyTorch segmented_sum in the kernel's order, bit for bit the
+    kernel's result: each kept term placed at (row, step k // T, chain
+    k % T) of a zero-padded [rows, steps, T, F] tensor (k its place in its
+    row), the steps added in order onto 0.0, the tree levels run, the
+    result added to the row; rows without terms keep their bits. threads:
+    T (default threads_for(M, R), the kernel's). Adding a padding zero
+    changes no bits: a chain's sum starts at +0.0 and is never -0.0. Reads
+    the row lengths to the host; used by the tests and chip_smoke.py, on
+    no path."""
+    _check(out, plan, src)
+    n_rows = plan.n_rows
+    T = threads_for(src.shape[0], n_rows) if threads is None else threads
+    width = math.prod(out.shape[1:])
+    starts = plan.row_start.long()
+    counts = starts[1:] - starts[:-1]
+    hit = torch.nonzero(counts > 0).reshape(-1)
+    if hit.numel() == 0:
+        return out
+    n_kept = int(starts[-1])
+    terms = src.reshape(src.shape[0], width).index_select(
+        0, plan.perm[:n_kept].long())
+    rows = plan.sorted_index[:n_kept]
+    k = torch.arange(n_kept, device=out.device) - starts[rows]
+    slot = torch.cumsum(counts > 0, 0) - 1      # a hit row's place in hit
+    term_slot = slot[rows]
+    flat = out.reshape(n_rows, width).clone()
+    hit_counts = counts[hit].tolist()
+    hit_starts = starts[hit].tolist()
+    a = 0
+    while a < len(hit_counts):
+        # A group of hit rows whose padded tensor stays within the budget.
+        b, longest = a, 0
+        while b < len(hit_counts):
+            longest_b = max(longest, hit_counts[b])
+            steps = -(-longest_b // T)
+            if b > a and (b + 1 - a) * steps * T * width > \
+                    _ORDERED_GROUP_ELEMENTS:
+                break
+            longest, b = longest_b, b + 1
+        steps = -(-longest // T)
+        t0, t1 = hit_starts[a], hit_starts[b - 1] + hit_counts[b - 1]
+        pad = terms.new_zeros(b - a, steps, T, width)
+        kk = k[t0:t1]
+        pad[term_slot[t0:t1] - a, kk // T, kk % T] = terms[t0:t1]
+        acc = terms.new_zeros(b - a, T, width)
+        for step in range(steps):
+            acc = acc + pad[:, step]
+        s = T // 2
+        while s >= 1:
+            acc = acc[:, :s] + acc[:, s:2 * s]
+            s //= 2
+        flat[hit[a:b]] = flat[hit[a:b]] + acc[:, 0]
+        a = b
+    return out.copy_(flat.reshape(out.shape))

@@ -46,7 +46,8 @@ def _timed(mesh, fn):
     mesh_mod.reset_counters()
     for key in fast.LAUNCHES:
         fast.LAUNCHES[key] = 0
-    scatter.LAUNCHES["segmented_sum"] = 0
+    for key in scatter.LAUNCHES:
+        scatter.LAUNCHES[key] = 0
     _sync(mesh.device)
     t0 = time.perf_counter()
     out = fn()
