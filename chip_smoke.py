@@ -109,7 +109,7 @@ ranks sharing the card over gloo.
    with the CPU by objective, rms and ejected set, and with scatter + chol
    by rms and by objective at one sigma; CG iterations and reads per solve
    and one LM iteration by stage are printed;
-10. full SLAM through the facade (models/slam.SLAMSystem, sync mode) at
+10. full SLAM through the facade (models/slam.SLAMSystem) at
    the default SLAMConfig (800x480, 4096 point slots, 64 keyframe slots),
    on bench.py's 120-frame synthetic sequence (seed 11, px_per_m 240) with
    touches at frames 0 and 6, then 4 blank frames and the camera back at
@@ -121,9 +121,10 @@ ranks sharing the card over gloo.
    after them and track GOOD after;
    no result may hold a NaN; fast_detect_levels must launch once per
    front-end run and fast_nonmax_levels once per keyframe inserted, and
-   no synchronising call may come from triangulation. Each
-   mapping task is timed from here between two device synchronisations,
-   and the facade's device-to-host reads are counted per tracked frame.
+   no synchronising call may come from triangulation. This checked run is
+   in sync mode; each mapping task is timed from here between two device
+   synchronisations, and the facade's device-to-host reads are counted per
+   tracked frame.
    The first keyframe integration (integrate_keyframe, growth at levels 3,
    0, 1, 2, one refind_newly, one local bundle adjustment round) and the
    relocalization are then replayed from a copy of their inputs on the
@@ -132,17 +133,35 @@ ranks sharing the card over gloo.
    depth cap of its 3 cm bootstrap baseline), so phase 8's replay is the
    one that holds growth on the card to the CPU. After the checks the same
    facade goes on for 10 frames, nothing wrapped, under torch.profiler: the
-   device's busy share;
+   device's busy share. Then the sequence runs three more times, each from
+   a fresh facade with the same seed and no synchronisation between
+   mapping tasks: in sync mode, which must equal the checked run bit for
+   bit; pipelined at depth 1 (SLAMSystem(pipelined=True), run_slam's
+   default), which must deliver every frame id once and in order with a
+   placeholder only on the call after the bootstrap, and equal the
+   checked run frame for frame, matched by frame_id, poses bit for bit;
+   and pipelined at depth 3 (bench.py's protocol), which must deliver
+   likewise (three placeholders) and meet every bound above, the
+   relocalization on a real frame after the blanks (the host's decisions
+   trail by three frames). For each mode (and the checked run): frames/s,
+   the host's wait in the stats read per tracked frame (a blocking read
+   in sync mode, the wait on the pinned copy's CUDA event pipelined) and
+   the synchronising calls per tracked frame with no mapping work, which
+   must be the frame's reads but for the pipelined stats read;
 11. the large-map facade: tools/run_large_map_slam.py's configuration
    (800x480, max_keyframes 128 above dense_solver_max_cams 64,
-   min_frames_between_kfs 4) in sync mode over its traverse (a 4096^2
+   min_frames_between_kfs 4) pipelined at depth 3, as the tool runs it,
+   over its traverse (a 4096^2
    texture, 12 m sideways, 600 frames rendered on the card), touches at
    frames 0 and 6. Every bundle adjustment after the bootstrap must go
    through band + band_pcg or scatter + pcg (the choices and rounds are
    printed by path), no NaN may be left in the map, more than 60% of the
-   frames must track, and the map must hold more keyframes than phase
-   10's; frames/s, points, CG iterations and reads per tracked frame are
-   printed, and the FAST launches must equal front-end runs and keyframes;
+   frames must track, every frame id must be delivered once and in order,
+   and the map must hold more keyframes than phase 10's; frames/s, points,
+   CG iterations and reads per tracked frame are printed, tracked, lost
+   and points beside the JAX package's record of the tool (a TPU run,
+   context only), and the FAST launches must equal front-end runs and
+   keyframes;
 12. the command line: tools/make_tum_synthetic.py's 120-frame sequence
    (seed 33) in the four variants of artifacts/ATE_r5.json (clean and
    degraded, 640x480 and 800x480; the degradations are the tool's, through
@@ -150,7 +169,8 @@ ranks sharing the card over gloo.
    written as PNG files with rgb.txt and groundtruth.txt into a temporary
    directory, then ``run_slam --dataset tum --root <dir> --frames 120
    --width <w> --height 480 --json`` (the first also ``--save-map
-   <file>``) through run_slam.main on the card. Each report must name the
+   <file>``) through run_slam.main on the card, pipelined at depth 1 (its
+   default). Each report must name the
    frame reader that ran, more than 90 frames must track, at least 2
    keyframes, the ATE must stay under 2% of the trajectory's span (printed
    beside the JAX package's figures: artifacts/ATE_r5.json, a TPU run, and
@@ -242,7 +262,8 @@ ranks sharing the card over gloo.
 
 Any failed check raises and the script exits non-zero. The last two lines
 of standard output are a JSON object describing the kernels (`launches`
-is the sum over phases 4, 7, 9-17, `launches_by_path` gives
+is the sum over phases 4, 7, 9-17 (phase 10's mode runs as "slam_modes"),
+`launches_by_path` gives
 each, phase 17's as "sharded" (this process: the second keyframe) and
 "sharded_ranks" (the ranks' launches, summed); the row
 fast_detect_levels_streams is the same kernel's stream-gridded launch,
@@ -315,6 +336,7 @@ SLAM_ATE_SHARE = 0.02        # of the trajectory's span
 SLAM_BLANKS = 4
 SLAM_RETURN_TO = 100         # the frame whose pose the camera comes back to
 SLAM_AFTER = 8               # frames shown after the blanks
+SLAM_DEPTHS = (1, 3)         # phase 10's pipelined runs (3: bench.py's)
 # A keyframe integration replayed on the card and on the CPU, by outcome:
 # measurement counts within 1%, the (point, keyframe) pairs with a
 # measurement agreeing on 98% of those either side has, the points the four
@@ -340,6 +362,11 @@ LARGE_RUN = 600           # of them, run through the facade from frame 0
 # then holds still at the last pose for LARGE_HOLD frames while it drains.
 LARGE_HOLD = 40
 LARGE_MIN_TRACKED = 0.6   # share of the frames
+LARGE_DEPTH = 3           # the tool's pipeline depth
+# The JAX package's record of the tool's run (artifacts/
+# LARGE_MAP_SLAM_r5.json, a TPU run at depth 3): context, not a bar.
+LARGE_JAX_TPU = {"frames": 600, "tracked": 479, "map_points": 323,
+                 "keyframes": 91}
 # Phase 12: run_slam on the four TUM-format sequences of
 # tools/make_tum_synthetic.py (clean and degraded, 640x480 and 800x480, 120
 # frames each), the variants of artifacts/ATE_r5.json.
@@ -1725,8 +1752,9 @@ def phase_large_map(device, card, fast, slam, fstep, bundle, synthetic,
                     cam_ops, lie, default_keyframes):
     """The large-map facade: tools/run_large_map_slam.py's configuration
     (max_keyframes 128 > dense_solver_max_cams, min_frames_between_kfs 4)
-    in sync mode over its traverse (a 4096^2 texture, 12 m sideways),
-    rendered on the card. Returns the FAST launches of the run."""
+    in its mode, pipelined at depth 3, over its traverse (a 4096^2
+    texture, 12 m sideways), rendered on the card. Returns the FAST
+    launches of the run."""
     from visualslam_android_tpu_torch.config import (
         MapMakerConfig,
         SLAMConfig,
@@ -1760,7 +1788,8 @@ def phase_large_map(device, card, fast, slam, fstep, bundle, synthetic,
           f"{time.perf_counter() - t0:.1f} s")
     del scene
 
-    sys_ = slam.SLAMSystem(config, seed=0, device=device)
+    sys_ = slam.SLAMSystem(config, seed=0, pipelined=True,
+                           pipeline_depth=LARGE_DEPTH, device=device)
     chosen, dispatched = {}, {}
     choice = sys_._solver_choice
 
@@ -1801,15 +1830,21 @@ def phase_large_map(device, card, fast, slam, fstep, bundle, synthetic,
             if k in (0, 6):
                 sys_.on_touch()
             results.append(sys_.track_frame(img))
+        results += sys_.flush()
         sync(device)
         wall = time.perf_counter() - t_wall
     finally:
         fstep.ba_round = ba_round
     launches = dict(fast.LAUNCHES)
+    n_calls = len(images)
     del images
+    results = [r for r in results if r.valid]
+    check([r.frame_id for r in results] == list(range(n_calls)),
+          "large map: frame ids not delivered once each and in order")
     n_frames = len(results)
     tracked = sum(r.phase == slam.PHASE_TRACKING and not r.lost
                   for r in results)
+    n_lost = sum(r.lost for r in results)
     counts = torch.stack([sys_.slam_map.points.count(),
                           sys_.slam_map.keyframes.count()]).tolist()
     n_pts, n_kf = int(counts[0]), int(counts[1])
@@ -1824,6 +1859,16 @@ def phase_large_map(device, card, fast, slam, fstep, bundle, synthetic,
           f"{n_kf} keyframes (the default run made {default_keyframes}), "
           f"{n_pts} points, map finite {finite}; {n_frames / wall:.3f} "
           f"frames/s over {wall:.1f} s (no claim)  [{card}]")
+    first_600 = results[:LARGE_FRAMES]
+    tracked_600 = sum(r.phase == slam.PHASE_TRACKING and not r.lost
+                      for r in first_600)
+    print(f"large map, pipelined at depth {LARGE_DEPTH}: of the first "
+          f"{len(first_600)} frames {tracked_600} tracked and "
+          f"{sum(r.lost for r in first_600)} lost, "
+          f"{first_600[-1].n_points} points and {first_600[-1].n_keyframes} "
+          f"keyframes at frame {len(first_600) - 1}; {n_lost} lost in all; "
+          f"beside the JAX package's record at depth 3 (a TPU run, context, "
+          f"not a bar): {LARGE_JAX_TPU}")
     print(f"large map: solver choices {chosen}; bundle-adjustment rounds by "
           f"path {dispatched}; CG {cg['iterations'] / max(cg['solves'], 1):.1f}"
           f" iterations and {bundle.HOST_READS['cg'] / max(cg['solves'], 1):.2f}"
@@ -2330,14 +2375,13 @@ def flagged_syncs(device):
 @contextlib.contextmanager
 def recorded_facade(sys_, fstep, relocalizer, mapping_task_names):
     """While open, the facade's mapping tasks run between two device
-    synchronisations and land in the yielded record by kind (ms list) and
-    by frame, the bundle-adjustment rounds by mode, and copies of the
+    synchronisations and land in the yielded record by kind (ms list),
+    the bundle-adjustment rounds by mode, and copies of the
     inputs of the first
     keyframe integration and of the last relocalization attempt are kept
     (for the card-against-CPU replays)."""
     dev = sys_.device
-    rec = {"tasks": {}, "task_of_frame": {}, "ba_modes": {},
-           "integrate": None, "reloc": None}
+    rec = {"tasks": {}, "ba_modes": {}, "integrate": None, "reloc": None}
     step = sys_._mapmaker_step
 
     def timed_step():
@@ -2348,7 +2392,6 @@ def recorded_facade(sys_, fstep, relocalizer, mapping_task_names):
         name = mapping_task_names[task]
         rec["tasks"].setdefault(name, []).append(
             1e3 * (time.perf_counter() - t0))
-        rec["task_of_frame"][sys_.frame_idx - 1] = name
         return task
 
     def keep(value):
@@ -2401,60 +2444,28 @@ def slam_sequence(device, datasets, synthetic):
 
 def phase_full_slam(device, card, fast, slam, fstep, relocalizer,
                     native_runtime, bundle, datasets, synthetic, ate):
-    """Full SLAM through the facade on the card: the checks of phase 10 in
-    the module docstring. Returns (launches, the frames, the record)."""
+    """Full SLAM through the facade on the card in sync mode: the checks of
+    phase 10 in the module docstring. Returns (launches, the record, the
+    frames, their poses, the results)."""
     from visualslam_android_tpu_torch.config import SLAMConfig
 
     images, poses, cam = slam_sequence(device, datasets, synthetic)
     sys_ = slam.SLAMSystem(SLAMConfig(), seed=0, device=device)
-    sync(device)
-    for name in fast.LAUNCHES:
-        fast.LAUNCHES[name] = 0
-    results, reads, syncs = [], [], []
     with recorded_facade(sys_, fstep, relocalizer,
-                         native_runtime.TASK_NAMES) as rec, \
-            flagged_syncs(device) as flagged:
-        t_wall = time.perf_counter()
-        for k, img in enumerate(images):
-            if k in (0, 6):
-                sys_.on_touch()
-            before = dict(sys_.host_reads,
-                          ba=bundle.HOST_READS["bundle_adjust"])
-            n_flagged = len(flagged)
-            results.append(sys_.track_frame(img))
-            after = dict(sys_.host_reads,
-                         ba=bundle.HOST_READS["bundle_adjust"])
-            reads.append({k2: after[k2] - before[k2] for k2 in after})
-            syncs.append(flagged[n_flagged:])
-        sync(device)
-        wall = time.perf_counter() - t_wall
-    launches = dict(fast.LAUNCHES)
+                         native_runtime.TASK_NAMES) as rec:
+        run = drive_facade(sys_, images, fast, bundle, device)
+    results, reads, syncs = run["calls"], run["reads"], run["syncs"]
+    launches = run["launches"]
 
-    main = results[:SLAM_FRAMES]
-    phases = [r.phase for r in main]
-    check(slam.PHASE_TRACKING in phases, "the bootstrap never finished")
-    first = phases.index(slam.PHASE_TRACKING)
-    tracked = [k for k, r in enumerate(main)
-               if r.phase == slam.PHASE_TRACKING and not r.lost]
-    est = ate.camera_centers([r.pose_R for r in main[first:]],
-                             [r.pose_t for r in main[first:]])
-    truth = poses[first:SLAM_FRAMES]
-    gtc = ate.camera_centers([R.cpu().numpy() for R, _ in truth],
-                             [t.cpu().numpy() for _, t in truth])
-    rmse, _ = ate.ate_rmse(est, gtc)
-    span = float(np.linalg.norm(gtc.max(0) - gtc.min(0)))
+    first, tracked = slam_bounds("full SLAM", results, poses, sys_, launches,
+                                 0, slam, ate)
     n_kf = [r.n_keyframes for r in results]
     tracking = [k for k, r in enumerate(results)
                 if r.phase == slam.PHASE_TRACKING and k > first]
     n_reads = {key: sum(reads[k][key] for k in tracking) for key in reads[0]}
-    print(f"full SLAM: bootstrap done at frame {first}, {len(tracked)} of "
-          f"{SLAM_FRAMES} frames tracked, {main[-1].n_points} points and "
-          f"{main[-1].n_keyframes} keyframes at frame {SLAM_FRAMES - 1} "
-          f"({n_kf[-1]} at the end), ATE {rmse:.6f} over a span of "
-          f"{span:.6f} ({100 * rmse / span:.4f}%)")
-    print(f"full SLAM: {len(results)} frames in {wall:.3f} s = "
-          f"{len(results) / wall:.3f} frames/s, bootstrap frames and per-task "
-          f"synchronisations included (no claim)  [{card}]")
+    print(f"full SLAM: {len(results)} frames in {run['wall']:.3f} s = "
+          f"{len(results) / run['wall']:.3f} frames/s, bootstrap frames and "
+          f"per-task synchronisations included (no claim)  [{card}]")
     print(f"full SLAM: host reads over the {len(tracking)} frames after the "
           f"bootstrap: {n_reads} = "
           f"{sum(n_reads.values()) / max(len(tracking), 1):.3f} per frame; "
@@ -2475,18 +2486,6 @@ def phase_full_slam(device, card, fast, slam, fstep, relocalizer,
         print(f"full SLAM: synchronising calls in triangulate.py: "
               f"{sum(tri.values())}")
         check(not tri, f"triangulation synchronised: {tri}")
-        # A tracked frame whose mapping task was "none" synchronises only in
-        # its stats read (and a relocalization read). The first frames
-        # after the bootstrap also fill per-shape caches (image._level_meta,
-        # tensors.const), which copy from the host once.
-        quiet = [k for k in tracking if k > first + 3
-                 and rec["task_of_frame"].get(k) == "none"]
-        extra = {k: syncs[k] for k in quiet
-                 if len(syncs[k]) != sum(reads[k].values())}
-        print(f"full SLAM: {len(quiet)} tracked frames with no mapping work, "
-              f"{len(extra)} with a synchronising call besides their reads")
-        check(len(quiet) > 20 and not extra,
-              f"hidden synchronising calls on the tracking path: {extra}")
     counts = {name: len(ms) for name, ms in rec["tasks"].items()}
     print(f"full SLAM: mapping tasks dispatched {counts}; bundle-adjustment "
           f"rounds by mode {rec['ba_modes']}")
@@ -2494,14 +2493,6 @@ def phase_full_slam(device, card, fast, slam, fstep, relocalizer,
         print(f"  task {name}: {len(ms)} runs, median "
               f"{statistics.median(ms):.3f} ms, max {max(ms):.3f} ms, sum "
               f"{sum(ms):.3f} ms  [{card}]")
-    check(first <= SLAM_BOOT_BY, f"bootstrap finished at frame {first}")
-    check(len(tracked) > SLAM_MIN_TRACKED,
-          f"only {len(tracked)} of {SLAM_FRAMES} frames tracked")
-    check(main[-1].n_keyframes > 2, "no keyframe added after the bootstrap")
-    check(rmse < SLAM_ATE_SHARE * span, f"ATE {rmse} over a span of {span}")
-    for r in results:
-        check(np.isfinite(r.pose_R).all() and np.isfinite(r.pose_t).all(),
-              f"frame {r.frame_id} returned a non-finite pose")
     reached = set(counts)
     for name in ("add_keyframe", "refind_newly", "ba_all", "ba_recent"):
         check(name in reached, f"the scheduler never reached {name}: {counts}")
@@ -2513,48 +2504,257 @@ def phase_full_slam(device, card, fast, slam, fstep, relocalizer,
           f"{n_kf[-1] - 2} keyframes ({under_way} under way)")
     check(n_reads["stats"] == len(tracking) and n_reads["bootstrap"] == 0,
           f"reads on tracked frames: {n_reads}")
+    check(rec["integrate"] is not None and rec["reloc"] is not None,
+          "no keyframe integration or relocalization to replay")
+    mode_line("sync, checked run (mapping tasks between synchronisations)",
+              run, first, 0, card)
+    profile_window(sys_, images[SLAM_RETURN_TO + SLAM_AFTER:][:PROFILE_FRAMES],
+                   device, card)
+    return launches, rec, images, poses, results
 
-    # Lost on the blanks, relocalized after them, GOOD tracking after that.
+
+def drive_facade(sys_, images, fast, bundle, device):
+    """Phase 10's sequence through the facade, touches at frames 0 and 6,
+    then flush(); FAST launches set to 0 before and read after. Per call it
+    records the facade's and bundle_adjust's reads, the synchronising calls
+    PyTorch flags (flagged_syncs) and the mapping task; per stats read the
+    host's wait in it (SLAMSystem._read_stats: the blocking read in sync
+    mode, the wait on the copy's event in pipelined mode). Returns a dict:
+    calls (what each track_frame returned), flushed, reads, syncs, tasks
+    (by frame), stats_wait (s, per read), wall (s), launches."""
+    run = {"calls": [], "reads": [], "syncs": [], "tasks": {},
+           "stats_wait": []}
+    read_stats, step = sys_._read_stats, sys_._mapmaker_step
+
+    def timed_read(ctx):
+        t0 = time.perf_counter()
+        out = read_stats(ctx)
+        run["stats_wait"].append(time.perf_counter() - t0)
+        return out
+
+    def noted_step():
+        task = step()
+        run["tasks"][sys_.frame_idx - 1] = task
+        return task
+
+    sys_._read_stats, sys_._mapmaker_step = timed_read, noted_step
+    for name in fast.LAUNCHES:
+        fast.LAUNCHES[name] = 0
+    try:
+        with flagged_syncs(device) as flagged:
+            sync(device)
+            t_wall = time.perf_counter()
+            for k, img in enumerate(images):
+                if k in (0, 6):
+                    sys_.on_touch()
+                before = dict(sys_.host_reads,
+                              ba=bundle.HOST_READS["bundle_adjust"])
+                n_flagged = len(flagged)
+                run["calls"].append(sys_.track_frame(img))
+                after = dict(sys_.host_reads,
+                             ba=bundle.HOST_READS["bundle_adjust"])
+                run["reads"].append({key: after[key] - before[key]
+                                     for key in after})
+                run["syncs"].append(flagged[n_flagged:])
+            run["flushed"] = sys_.flush()
+            sync(device)
+            run["wall"] = time.perf_counter() - t_wall
+    finally:
+        sys_._read_stats, sys_._mapmaker_step = read_stats, step
+    run["launches"] = dict(fast.LAUNCHES)
+    return run
+
+
+def quiet_syncs(label, run, first, depth):
+    """The synchronising calls of steady-state tracked frames: the calls
+    after the bootstrap (and its first 3 frames, which fill per-shape
+    caches: image._level_meta, tensors.const) whose mapping task was
+    "none". Each must synchronise exactly in its reads, but for the stats
+    read in pipelined mode, which waits on an event and is not flagged.
+    Returns (flagged calls per such frame, their count)."""
+    quiet = [k for k, task in run["tasks"].items()
+             if k > first + 3 and task == 0]  # native_runtime.TASK_NONE
+    extra = {}
+    for k in quiet:
+        reads = sum(run["reads"][k].values())
+        if depth:
+            reads -= run["reads"][k]["stats"]
+        if len(run["syncs"][k]) != reads:
+            extra[k] = run["syncs"][k]
+    print(f"{label}: {len(quiet)} tracked frames with no mapping work, "
+          f"{len(extra)} with a synchronising call besides their reads")
+    check(len(quiet) > 20 and not extra,
+          f"{label}: hidden synchronising calls on the tracking path: "
+          f"{extra}")
+    return sum(len(run["syncs"][k]) for k in quiet) / len(quiet), len(quiet)
+
+
+def mode_line(label, run, first, depth, card):
+    """frames/s, the stats_pull wait per tracked frame and the synchronising
+    calls per steady-state tracked frame of a drive_facade run."""
+    n = len(run["calls"])
+    waits = run["stats_wait"]
+    if torch.cuda.is_available():
+        per_quiet, n_quiet = quiet_syncs(f"full SLAM, {label}", run, first,
+                                         depth)
+        syncs = (f"{per_quiet:.3f} synchronising calls per steady-state "
+                 f"tracked frame (over {n_quiet})")
+    else:
+        syncs = "synchronising calls not counted on the CPU"
+    print(f"full SLAM, {label}: {n} frames in {run['wall']:.3f} s = "
+          f"{n / run['wall']:.3f} frames/s; stats_pull wait "
+          f"{1e3 * sum(waits) / max(len(waits), 1):.4f} ms per tracked frame "
+          f"over {len(waits)}; {syncs} (no claim)  [{card}]")
+
+
+def slam_bounds(label, results, poses, sys_, launches, depth, slam, ate):
+    """Phase 10's bounds on a run of its sequence, `results` one per frame
+    in frame order: bootstrap by SLAM_BOOT_BY, more than SLAM_MIN_TRACKED
+    of the first SLAM_FRAMES tracked, keyframes added, ATE under
+    SLAM_ATE_SHARE of the span, no non-finite pose; the blank frames BAD,
+    tracking lost on them and relocalized on a real frame after them (in
+    sync mode and at depth 1: lost on the frame max_lost_frames after the
+    first blank, relocalized on the first real frame), GOOD after the
+    relocalized frame; FAST launched once per front-end run and once per
+    keyframe. Returns (first tracking frame, tracked frames)."""
+    main = results[:SLAM_FRAMES]
+    phases = [r.phase for r in main]
+    check(slam.PHASE_TRACKING in phases, f"{label}: the bootstrap never "
+          f"finished")
+    first = phases.index(slam.PHASE_TRACKING)
+    tracked = [k for k, r in enumerate(main)
+               if r.phase == slam.PHASE_TRACKING and not r.lost]
+    est = ate.camera_centers([r.pose_R for r in main[first:]],
+                             [r.pose_t for r in main[first:]])
+    truth = poses[first:SLAM_FRAMES]
+    gtc = ate.camera_centers([R.cpu().numpy() for R, _ in truth],
+                             [t.cpu().numpy() for _, t in truth])
+    rmse, _ = ate.ate_rmse(est, gtc)
+    span = float(np.linalg.norm(gtc.max(0) - gtc.min(0)))
+    n_kf = results[-1].n_keyframes
+    print(f"{label}: bootstrap done at frame {first}, {len(tracked)} of "
+          f"{SLAM_FRAMES} frames tracked, {main[-1].n_points} points and "
+          f"{main[-1].n_keyframes} keyframes at frame {SLAM_FRAMES - 1} "
+          f"({n_kf} at the end), ATE {rmse:.6f} over a span of "
+          f"{span:.6f} ({100 * rmse / span:.4f}%)")
+    check(first <= SLAM_BOOT_BY, f"{label}: bootstrap finished at frame "
+          f"{first}")
+    check(len(tracked) > SLAM_MIN_TRACKED,
+          f"{label}: only {len(tracked)} of {SLAM_FRAMES} frames tracked")
+    check(main[-1].n_keyframes > 2,
+          f"{label}: no keyframe added after the bootstrap")
+    check(rmse < SLAM_ATE_SHARE * span,
+          f"{label}: ATE {rmse} over a span of {span}")
+    for r in results:
+        check(np.isfinite(r.pose_R).all() and np.isfinite(r.pose_t).all(),
+              f"{label}: frame {r.frame_id} returned a non-finite pose")
     b0 = SLAM_FRAMES
-    trip = b0 + sys_.config.tracker.max_lost_frames
     back = b0 + SLAM_BLANKS
-    print("full SLAM, relocalization: " + "; ".join(
+    print(f"{label}, relocalization: " + "; ".join(
         f"frame {k}: quality {results[k].quality}, lost {results[k].lost}, "
         f"coarse {results[k].did_coarse}, found {results[k].n_found}, "
         f"{results[k].message.split(' Found')[0]!r}"
         for k in range(b0, len(results))))
     check(all(results[k].quality == 0 for k in range(b0, back)),
-          "a blank frame did not track BAD")
-    check(results[trip].lost, f"tracking not lost at frame {trip}")
-    rec_frame = results[back]
-    check(rec_frame.message.startswith("Relocalized") and not rec_frame.lost
-          and rec_frame.n_found > 20,
-          f"no relocalization at frame {back}: {rec_frame.message}")
-    check(all(r.quality == 2 for r in results[back + 1:]),
-          f"tracking after relocalization not GOOD: "
-          f"{[r.quality for r in results[back + 1:]]}")
+          f"{label}: a blank frame did not track BAD")
+    check(any(results[k].lost for k in range(b0, back)),
+          f"{label}: tracking not lost on the blank frames")
+    relocalized = [k for k in range(back, len(results))
+                   if results[k].message.startswith("Relocalized")]
+    check(relocalized, f"{label}: no relocalization after the blanks")
+    k_rec = relocalized[0]
+    if depth <= 1:
+        trip = b0 + sys_.config.tracker.max_lost_frames
+        check(results[trip].lost, f"{label}: tracking not lost at frame "
+              f"{trip}")
+        check(k_rec == back, f"{label}: relocalized at frame {k_rec}, not "
+              f"{back}")
+    rec_frame = results[k_rec]
+    check(not rec_frame.lost and rec_frame.n_found > 20,
+          f"{label}: relocalization at frame {k_rec}: {rec_frame.message}")
+    check(all(r.quality == 2 for r in results[k_rec + 1:]),
+          f"{label}: tracking after relocalization not GOOD: "
+          f"{[r.quality for r in results[k_rec + 1:]]}")
     # The relocalized frame and the next one ask track_map for the coarse
     # stage; it runs only where more than coarse_min points are searched at
     # level 2 or above (tests/test_torch_slam.py holds the branch).
-    print(f"full SLAM: coarse stage on the relocalized frame and the next: "
-          f"{rec_frame.did_coarse}, {results[back + 1].did_coarse}")
+    after = results[k_rec + 1].did_coarse if k_rec + 1 < len(results) else None
+    print(f"{label}: coarse stage on the relocalized frame ({k_rec}) and the "
+          f"next: {rec_frame.did_coarse}, {after}")
     n_reloc = sum(r.message.startswith("Relocalized") for r in results)
     n_front = len(results) + n_reloc
-    print(f"full SLAM: FAST launches {launches}: {n_front} front-end runs "
-          f"({len(results)} frames + {n_reloc} relocalized frame run twice), "
-          f"{n_kf[-1]} keyframes inserted")
+    print(f"{label}: FAST launches {launches}: {n_front} front-end runs "
+          f"({len(results)} frames + {n_reloc} relocalized frame run "
+          f"twice), {n_kf} keyframes inserted")
     check(launches["fast_detect_levels"] == n_front,
-          f"fast_detect_levels launched {launches['fast_detect_levels']} "
-          f"times for {n_front} front-end runs")
-    check(launches["fast_nonmax_levels"] == n_kf[-1],
-          f"fast_nonmax_levels launched {launches['fast_nonmax_levels']} "
-          f"times for {n_kf[-1]} keyframes")
-    check(launches["fast_detect"] == 0, "the single-image wrapper launched")
-    check(rec["integrate"] is not None and rec["reloc"] is not None,
-          "no keyframe integration or relocalization to replay")
-    profile_window(sys_, images[SLAM_RETURN_TO + SLAM_AFTER:][:PROFILE_FRAMES],
-                   device, card)
-    return launches, rec
+          f"{label}: fast_detect_levels launched "
+          f"{launches['fast_detect_levels']} times for {n_front} front-end "
+          f"runs")
+    check(launches["fast_nonmax_levels"] == n_kf,
+          f"{label}: fast_nonmax_levels launched "
+          f"{launches['fast_nonmax_levels']} times for {n_kf} keyframes")
+    check(launches["fast_detect"] == 0,
+          f"{label}: the single-image wrapper launched")
+    return first, tracked
+
+
+def same_results(label, a, b):
+    """Two runs' results (one per frame, frame order) equal field for field
+    and pose bit for bit; returns the first frame that differs, or None."""
+    for ra, rb in zip(a, b):
+        fields = ("frame_id", "phase", "quality", "n_found", "n_points",
+                  "n_keyframes", "lost", "did_coarse", "added_keyframe",
+                  "message")
+        if (any(getattr(ra, f) != getattr(rb, f) for f in fields)
+                or not np.array_equal(ra.pose_R, rb.pose_R)
+                or not np.array_equal(ra.pose_t, rb.pose_t)):
+            print(f"{label}: frame {ra.frame_id} differs: {ra} / {rb}")
+            return ra.frame_id
+    return None if len(a) == len(b) else min(len(a), len(b))
+
+
+def phase_slam_modes(device, card, fast, slam, bundle, ate, images, poses,
+                     checked):
+    """Phase 10's sequence and touches again, each run from a fresh facade
+    with the same seed and nothing wrapped but drive_facade's counters: in
+    sync mode (two sync runs on the card must agree bit for bit), then
+    pipelined at depth 1 (equal to the checked sync run frame for frame,
+    matched by frame_id) and at each further depth of SLAM_DEPTHS (phase
+    10's bounds). Every pipelined run delivers each frame id once and in
+    order, with placeholders only on the `depth` calls after the
+    bootstrap. Prints frames/s, the stats_pull wait and the synchronising
+    calls per steady-state frame of each. Returns the FAST launches of the
+    runs, summed."""
+    from visualslam_android_tpu_torch.config import SLAMConfig
+
+    total = {}
+    for depth in (0,) + SLAM_DEPTHS:
+        label = f"pipelined, depth {depth}" if depth else "sync"
+        sys_ = slam.SLAMSystem(SLAMConfig(), seed=0, pipelined=bool(depth),
+                               pipeline_depth=max(depth, 1), device=device)
+        run = drive_facade(sys_, images, fast, bundle, device)
+        for name, n in run["launches"].items():
+            total[name] = total.get(name, 0) + n
+        delivered = run["calls"] + run["flushed"]
+        results = [r for r in delivered if r.valid]
+        ids = [r.frame_id for r in results]
+        check(ids == list(range(len(images))),
+              f"{label}: frame ids delivered {ids}")
+        first = [r.phase for r in results].index(slam.PHASE_TRACKING)
+        waiting = [k for k, r in enumerate(run["calls"]) if not r.valid]
+        check(waiting == list(range(first + 1, first + 1 + depth)),
+              f"{label}: placeholders on calls {waiting}")
+        mode_line(label, run, first, depth, card)
+        slam_bounds(f"full SLAM, {label}", results, poses, sys_,
+                    run["launches"], depth, slam, ate)
+        if depth <= 1:
+            differs = same_results(f"full SLAM, {label}", results, checked)
+            check(differs is None, f"{label}: results differ from the "
+                  f"checked sync run from frame {differs}")
+            print(f"full SLAM, {label}: every result equal to the checked "
+                  f"sync run's, poses bit for bit")
+        del sys_
+    return total
 
 
 def device_profile(run, device):
@@ -3577,12 +3777,20 @@ def main():
 
     # ---- 10. full SLAM through the facade ----
     with seg_path("slam"):
-        slam_launches, slam_rec = phase_full_slam(
-            device, card, fast, slam, frame_step, relocalizer,
-            native_runtime, bundle, datasets, synthetic, ate)
+        slam_launches, slam_rec, slam_images, slam_poses, slam_results = (
+            phase_full_slam(device, card, fast, slam, frame_step, relocalizer,
+                            native_runtime, bundle, datasets, synthetic, ate))
     phase_slam_cpu(slam_rec, device, card, frame_step, slam, relocalizer,
                    bundle)
     del slam_rec
+    t_phase = time.perf_counter()
+    with seg_path("slam_modes"):
+        modes_launches = phase_slam_modes(device, card, fast, slam, bundle,
+                                          ate, slam_images, slam_poses,
+                                          slam_results)
+    del slam_images, slam_poses, slam_results
+    print(f"phase 10's runs in the facade's modes took "
+          f"{time.perf_counter() - t_phase:.1f} s")
 
     # ---- 11. the large-map facade ----
     with seg_path("large_map"):
@@ -3644,6 +3852,7 @@ def main():
 
     by_path = {"chain": chain_launches, "bootstrap": boot_launches,
                "ba_full_size": ba_launches, "slam": slam_launches,
+               "slam_modes": modes_launches,
                "large_map": large_launches, "run_slam": cli_launches,
                "streams": stream_launches, "ba_512": ba512_launches,
                "drift": drift_launches, "photo": photo_launches,

@@ -367,16 +367,37 @@ def test_cli_matches_a_direct_run(tmp_path, capsys):
 
 def test_cli_reads_a_tum_directory(tmp_path):
     """--dataset tum on a copy of tests/data/tum_tiny: the report names the
-    reader; --pipeline-depth above 1 is refused."""
+    reader; --pipeline-depth above 1 is accepted, and its run delivers
+    every frame (the trailing ones through flush)."""
     root = tmp_path / "tum"
     shutil.copytree(TUM, root)
-    report, _ = run_slam.main([
-        "--dataset", "tum", "--root", str(root), "--width", "64",
-        "--height", "48", "--preset", "small", "--device", "cpu", "--json"])
+    args = ["--dataset", "tum", "--root", str(root), "--width", "64",
+            "--height", "48", "--preset", "small", "--device", "cpu",
+            "--json"]
+    report, _ = run_slam.main(args)
     assert report["frames"] == len(datasets.load_tum(str(root)))
     assert report["reader"] == ("native" if tnative.available() else "numpy")
-    with pytest.raises(SystemExit):
-        run_slam.main(["--pipeline-depth", "2", "--device", "cpu"])
+    deep, sys_ = run_slam.main(args + ["--pipeline-depth", "3"])
+    assert sys_.pipelined and sys_.pipeline_depth == 3
+    assert deep["frames"] == report["frames"]
+    assert deep["reader"] == report["reader"]
+    assert not sys_._ctxs and not sys_._result_backlog
+
+
+def test_cli_default_report_equals_sync(capsys):
+    """The default mode (pipelined at depth 1) reports what --sync reports:
+    tracked frames, keyframes and ATE (the per-frame lines too, one frame
+    later in the loop but the same lines)."""
+    args = ["--dataset", "synthetic", "--frames", str(CLI_FRAMES),
+            "--preset", "small", "--device", "cpu"]
+    piped, sys_piped = run_slam.main(args)
+    lines_piped = capsys.readouterr().out.strip().splitlines()
+    synced, sys_sync = run_slam.main(args + ["--sync"])
+    lines_sync = capsys.readouterr().out.strip().splitlines()
+    assert sys_piped.pipelined and not sys_sync.pipelined
+    keys = ("frames", "tracked", "map_points", "keyframes", "ate_rmse")
+    assert {k: piped[k] for k in keys} == {k: synced[k] for k in keys}
+    assert lines_piped[:-1] == lines_sync[:-1]
 
 
 def test_native_build_failure_falls_back_to_numpy(tmp_path, monkeypatch):

@@ -99,10 +99,12 @@ def _port_path(n_frames, blanks=()):
     return images, gt
 
 
-def _run_port(config, images, seed=3):
-    """Drive the port's facade over `images`, touching at frames 0 and 6;
-    returns (system, results, tasks run after each tracked frame)."""
-    sys_ = tslam.SLAMSystem(config, seed=seed, device="cpu")
+def _run_port(config, images, seed=3, **facade):
+    """Drive the port's facade (SLAMSystem keywords `facade`, such as the
+    pipelined mode's) over `images`, touching at frames 0 and 6, then
+    flush it; returns (system, results in delivery order, tasks run after
+    each tracked frame)."""
+    sys_ = tslam.SLAMSystem(config, seed=seed, device="cpu", **facade)
     tasks = []
     step = sys_._mapmaker_step
 
@@ -116,7 +118,7 @@ def _run_port(config, images, seed=3):
         if k in (0, 6):
             sys_.on_touch()
         results.append(sys_.track_frame(img))
-    return sys_, results, tasks
+    return sys_, results + sys_.flush(), tasks
 
 
 @pytest.fixture(scope="module")
@@ -126,14 +128,15 @@ def port_run():
     return sys_, results, gt, tasks
 
 
-@pytest.fixture(scope="module")
-def jax_run():
-    """test_slam.py's slam_run fixture: the JAX package's facade."""
+def _run_jax(**facade):
+    """test_slam.py's slam_run: the JAX package's facade (SLAMSystem
+    keywords `facade`) over its sequence, then flushed; returns (system,
+    results in delivery order)."""
     config = _config(jconfig)
     rng = np.random.default_rng(21)
     scene = jsyn.make_planar_scene(rng, depth=4.0, px_per_m=140.0)
     base_R, base_t = jsyn.look_at_pose((0.0, 0.0, 0.0))
-    sys_ = jslam.SLAMSystem(config, seed=3)
+    sys_ = jslam.SLAMSystem(config, seed=3, **facade)
     results = []
     for k in range(N_FRAMES):
         s = k / (N_FRAMES - 1)
@@ -144,7 +147,13 @@ def jax_run():
         if k in (0, 6):
             sys_.on_touch()
         results.append(sys_.track_frame(img))
-    return sys_, results
+    return sys_, results + sys_.flush()
+
+
+@pytest.fixture(scope="module")
+def jax_run():
+    """test_slam.py's slam_run fixture: the JAX package's facade."""
+    return _run_jax()
 
 
 def _first_track(results):
@@ -339,9 +348,10 @@ def test_resolve_pending_ladder():
     assert sys_.reset_requested
 
 
-def _clone_tracking_state(src):
-    """A new facade holding a deep copy of `src`'s tracking state."""
-    dst = tslam.SLAMSystem(src.config, seed=7, device="cpu")
+def _clone_tracking_state(src, **facade):
+    """A new facade (SLAMSystem keywords `facade`) holding a deep copy of
+    `src`'s tracking state."""
+    dst = tslam.SLAMSystem(src.config, seed=7, device="cpu", **facade)
     dst.slam_map = src.slam_map.clone()
     dst.phase = tslam.PHASE_TRACKING
     for name in ("R", "t", "velocity", "_msd", "_depth", "_wiggle_dev",

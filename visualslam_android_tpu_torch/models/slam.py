@@ -1,26 +1,45 @@
 """The SLAM system facade: the per-frame entry point, the bootstrap state
 machine, the mapping-stage scheduler and relocalization.
 
-Port of the JAX package's ``models/slam.py`` in its synchronous mode (the
-reference's engine facade SystemPTAM, jni/jni_part.cpp:16-75; the
-tracker's frame loop and initialisation flow, jni/Tracker.cc:76-346; the
-MapMaker priority loop, jni/MapMaker.cc:80-123, which runs here as one
-scheduled unit of mapping work after each tracked frame).
+Port of the JAX package's ``models/slam.py`` (the reference's engine facade
+SystemPTAM, jni/jni_part.cpp:16-75; the tracker's frame loop and
+initialisation flow, jni/Tracker.cc:76-346; the MapMaker priority loop,
+jni/MapMaker.cc:80-123, which runs here as one scheduled unit of mapping
+work after each tracked frame).
 
 Each tracked frame runs ``frame_step`` (front-end, SBI prior, motion
 model, TrackMap, quality and bad-point handling), then one mapping task
 chosen by the scheduler from host state only (the keyframe queue, the
-bundle adjustments' convergence, one-frame-stale mirrors of the device's
-queue flags), then reads the frame's packed stats vector once. A bundle
-adjustment's convergence and map health stay on the device and ride the
-next frame's stats vector. Besides that read, the per-frame path reads the
-device in bundle_adjust (once per LM iteration) and once on a frame that
-tries to relocalize; ``SLAMSystem.host_reads`` counts the facade's own
-reads.
+bundle adjustments' convergence, mirrors of the device's queue flags from
+the last stats read), then its packed stats vector is read once and every
+host decision is made on it. A bundle adjustment's convergence and map
+health stay on the device and ride the next frame's stats vector. Besides
+that read, the per-frame path reads the device in bundle_adjust (once per
+LM iteration) and once on a frame that tries to relocalize;
+``SLAMSystem.host_reads`` counts the facade's own reads.
 
-The pipelined mode of the JAX package (stats pulled on a worker thread,
-results a frame or more late) is not ported: it hides the round trip of a
-remote link, which a local card does not have.
+Two modes, as in the JAX package:
+
+- sync (``pipelined=False``, the default): ``track_frame`` reads the
+  frame's stats before it returns, and returns that frame's result;
+- pipelined (``pipelined=True, pipeline_depth=d``): the stats go to the
+  host as a stream-ordered copy into pinned memory, started when the frame
+  is dispatched and marked by a CUDA event (a plain copy on the CPU), and
+  are read ``d`` frames later, so the host enqueues the next frames while
+  a frame's stats are in flight. ``track_frame`` returns the oldest result
+  ready; ``FrameResult.frame_id`` says which frame it belongs to, the
+  first calls after the bootstrap return placeholders
+  (``valid=False``), and ``flush()`` returns the frames still in flight.
+  At depth 1 the results are those of sync mode bit for bit, one frame
+  late. At depth d >= 2 the host's decisions (lost counting, keyframe
+  adds, bundle-adjustment convergence, tier-3 resets) trail by d frames,
+  so the outcome differs from sync mode. In-flight frames are resolved
+  before relocalization and before a reset is serviced.
+
+No result carries a non-finite pose: a frame that tracked against a
+non-finite map returns, and restores on the device, the newest finite
+pose the host has read (at depth >= 2 the frame dispatched before it may
+itself be non-finite, so the pose a frame started from is no fallback).
 """
 
 from __future__ import annotations
@@ -50,7 +69,13 @@ PHASE_TRACKING = 2
 
 @dataclasses.dataclass
 class FrameResult:
-    """Per-frame output of :meth:`SLAMSystem.track_frame`."""
+    """Per-frame output of :meth:`SLAMSystem.track_frame`.
+
+    ``valid`` is False only for the pipelined warm-up placeholder (the
+    first tracked frames' results are still in flight; they arrive at the
+    next calls or through ``flush()``). A placeholder carries
+    ``frame_id=-1`` and the identity pose: consumers skip it when they
+    count tracked frames or collect a trajectory."""
 
     pose_R: np.ndarray
     pose_t: np.ndarray
@@ -64,7 +89,7 @@ class FrameResult:
     added_keyframe: bool
     message: str
     frame_id: int = -1  # which track_frame call this result belongs to
-    valid: bool = True  # kept for the JAX package's interface: always True
+    valid: bool = True  # False: warm-up placeholder, not a real frame
 
 
 class SLAMSystem:
@@ -73,12 +98,27 @@ class SLAMSystem:
     jni/jni_part.cpp:49-71). Runs on `device`, the CUDA card when None; on
     a machine without one it raises unless device="cpu" is passed. One
     torch.Generator seeded from `seed` on that device makes every random
-    draw (MLESAC, the plane RANSAC, track_map's point selections)."""
+    draw (MLESAC, the plane RANSAC, track_map's point selections).
+
+    pipelined=False (default): track_frame returns this frame's result.
+    pipelined=True: track_frame returns the result of the frame
+    pipeline_depth calls back (a placeholder while there is none) and
+    makes no blocking read on a steady-state frame; call flush() after the
+    last frame for the rest."""
 
     def __init__(self, config: Optional[SLAMConfig] = None, seed: int = 0,
+                 pipelined: bool = False, pipeline_depth: int = 1,
                  device=None):
+        """pipeline_depth (pipelined mode only): how many frames may be in
+        flight before track_frame waits for the oldest one's stats. Depth 1
+        gives sync mode's results bit for bit, one frame late; at depth d
+        the host's decisions trail by d frames (the reference's
+        tracker/mapmaker thread pair tolerates the same kind of lag through
+        its racing flags, MapMaker.h:114-118; d bounds it here)."""
         self.config = config or SLAMConfig()
         self.device = default_device(device)
+        self.pipelined = pipelined
+        self.pipeline_depth = max(1, int(pipeline_depth))
         tc = self.config.tracker
         self.cam = cam_ops.make_camera(self.config.camera.params(), tc.width,
                                        tc.height, device=self.device)
@@ -95,10 +135,26 @@ class SLAMSystem:
                            "bootstrap": 0, "solver": 0}
         # Wall-clock stage timer, off by default (run_slam --profile).
         self.timer = profiling.StageTimer(enabled=False)
+        # Results not yet handed to the caller (pipelined mode can make two
+        # in one call around lost, bootstrap and reset edges). Survives
+        # reset() so that no result is dropped.
+        self._result_backlog: List[FrameResult] = []
+        # Pipelined mode: a ring of pipeline_depth + 1 host buffers for the
+        # stats copies (pinned on the card, so the copy is asynchronous),
+        # each with the CUDA event that marks its copy done.
+        self._stats_ring = []
+        if pipelined:
+            cuda = self.device.type == "cuda"
+            self._stats_ring = [
+                (torch.empty(fstep.STATS_LEN, pin_memory=cuda),
+                 torch.cuda.Event() if cuda else None)
+                for _ in range(self.pipeline_depth + 1)]
+        self._ring_next = 0
         self.reset()
 
     def _read(self, x, kind):
-        """The one way the facade reads the device: x to a numpy array."""
+        """A blocking read of x into a numpy array, counted by kind (the
+        pipelined stats copy is counted in _read_stats)."""
         self.host_reads[kind] += 1
         return x.cpu().numpy()
 
@@ -131,7 +187,8 @@ class SLAMSystem:
         self._trail_count = 0
         self._prev_frame = None
         # Mapping-stage state (device) and host mirrors of its queue flags,
-        # refreshed from each frame's stats read, so one frame stale.
+        # refreshed at each stats read (one frame stale in sync mode,
+        # pipeline_depth frames in pipelined mode).
         N = cfg.tracker.max_map_points
         K = cfg.mapmaker.max_keyframes
         self.never_retry = torch.zeros(N, K, dtype=torch.bool, device=dev)
@@ -148,6 +205,9 @@ class SLAMSystem:
         # two flags on the device: they ride the next frame_step's
         # `pending` input and are resolved at that frame's stats read.
         self._pending_ba = None
+        # Pipelined mode's in-flight frames, oldest first (at most
+        # pipeline_depth; empty between calls in sync mode).
+        self._ctxs: List[dict] = []
         # Keyframes are never deleted and slots fill in order, so the host
         # knows the count without reading the device.
         self._kf_count_host = 0
@@ -162,24 +222,60 @@ class SLAMSystem:
 
     # ---- per-frame ---------------------------------------------------
 
+    def _drain_ctxs(self):
+        """Resolve every in-flight frame, oldest first, into the result
+        backlog: before any path that needs the host's decision state
+        current (servicing a reset, relocalization, flush)."""
+        while self._ctxs:
+            self._result_backlog.append(self._process_ctx())
+
     def track_frame(self, img) -> FrameResult:
         """TrackFrame (Tracker.cc:76-146) on a grey [H, W] image (numpy or
-        tensor, values in [0, 255]); returns this frame's result."""
+        tensor, values in [0, 255]); returns this frame's result in sync
+        mode, the oldest ready one in pipelined mode."""
+        # Pipelined mode: resolve in-flight frames down to depth - 1; their
+        # decisions (keyframe add, quality and lost count, BA convergence)
+        # feed this frame's scheduling.
+        while len(self._ctxs) >= self.pipeline_depth:
+            self._result_backlog.append(self._process_ctx())
         # Tier-3 recovery (MapMaker.cc:906-915): a bundle adjustment that
-        # left a non-finite map requested a full reset.
+        # left a non-finite map requested a full reset. Frames still in
+        # flight tracked against that map; they resolve first.
         if self.reset_requested:
+            self._drain_ctxs()
             self.reset()
         img = torch.as_tensor(img).to(self.device, torch.float32)
         fid = self.frame_idx
         self.frame_idx += 1
         if self.phase == PHASE_TRACKING:
-            return self._tracking_frame(img, fid)
-        return self._bootstrap_frame(img, fid)
+            res = self._tracking_frame(img, fid)
+        else:
+            res = self._bootstrap_frame(img, fid)
+        if res is not None:
+            self._result_backlog.append(res)
+        if self._result_backlog:
+            return self._result_backlog.pop(0)
+        # Warm-up edge: the first tracked frames' results are in flight.
+        return FrameResult(
+            pose_R=np.eye(3, dtype=np.float32),
+            pose_t=np.zeros(3, np.float32),
+            quality=tracker_mod.QUALITY_GOOD, n_found=0,
+            n_points=self._n_points_host, n_keyframes=self._kf_count_host,
+            phase=self.phase, lost=False, did_coarse=False,
+            added_keyframe=False,
+            message="(pipelined warm-up: result pending)",
+            frame_id=-1, valid=False,
+        )
 
     def flush(self) -> List[FrameResult]:
-        """Kept for the JAX package's interface (its pipelined mode delivers
-        results late): in sync mode every call returns its own, so none."""
-        return []
+        """Every result not yet delivered (pipelined mode: the frames in
+        flight and the backlog; sync mode: none)."""
+        if self._ctxs:
+            self._drain_ctxs()
+            if self.reset_requested:
+                self.reset()
+        out, self._result_backlog = self._result_backlog, []
+        return out
 
     # ---- bootstrap frames ---------------------------------------------
 
@@ -211,14 +307,19 @@ class SLAMSystem:
 
     # ---- normal tracking ----------------------------------------------
 
-    def _tracking_frame(self, img, fid) -> FrameResult:
+    def _tracking_frame(self, img, fid) -> Optional[FrameResult]:
         """The tracking step and one mapping task; after max_lost_frames
-        BAD frames, relocalization first (Tracker.cc:133-175)."""
+        BAD frames, relocalization first (Tracker.cc:133-175). Returns the
+        result in sync mode, None when the frame is left in flight."""
         cfg = self.config
         lost = self.lost_frames >= cfg.tracker.max_lost_frames
 
         use_prior, forced_coarse, recovered = True, False, False
         if lost:
+            # Relocalization reads and writes the host's decision state:
+            # resolve the frames in flight first, so that its inputs are
+            # current and the results stay in order.
+            self._drain_ctxs()
             with self.timer.stage("reloc"):
                 frame, sbi_cur = fstep.bootstrap_frontend(img, cfg)
                 res = relocalizer.attempt_recovery(
@@ -259,8 +360,6 @@ class SLAMSystem:
         else:
             pending_vec, pending_kind = self._pending_zero, None
 
-        R_before, t_before = self.R, self.t
-        pose_before = self._pose_host
         with self.timer.stage("frame_step"):
             out = fstep.frame_step(
                 img, self.slam_map, self.cam, self.R, self.t, self.velocity,
@@ -282,13 +381,24 @@ class SLAMSystem:
         with self.timer.stage("mapmaker"):
             self._mapmaker_step()
             self.timer.sync(self.slam_map)
-        return self._process_ctx(dict(
+        ctx = dict(
             stats=out.stats, frame=out.frame, found=out.found,
             found_pos=out.found_pos, search_level=out.search_level,
             did_subpix=out.did_subpix, R=out.R, t=out.t,
-            R_before=R_before, t_before=t_before, pose_before=pose_before,
             pending_kind=pending_kind, recovered=recovered, fid=fid,
-        ))
+        )
+        self._ctxs.append(ctx)
+        if not self.pipelined:
+            return self._process_ctx()
+        # Start the stats copy now, behind the work already enqueued; the
+        # host reads it pipeline_depth frames later.
+        buf, done = self._stats_ring[self._ring_next]
+        self._ring_next = (self._ring_next + 1) % len(self._stats_ring)
+        buf.copy_(out.stats, non_blocking=done is not None)
+        if done is not None:
+            done.record(torch.cuda.current_stream(self.device))
+        ctx["stats_copy"] = (buf, done)
+        return None
 
     def _resolve_pending_sync(self):
         """Resolve a deferred bundle-adjustment result with a read of its
@@ -317,14 +427,28 @@ class SLAMSystem:
             if conv:
                 self.recent_converged = True
 
-    def _process_ctx(self, ctx) -> FrameResult:
-        """Read the frame's packed stats (its one read) and make every host
-        decision on it."""
+    def _read_stats(self, ctx):
+        """The frame's packed stats on the host: a blocking read in sync
+        mode; in pipelined mode a wait on the event of the copy started at
+        dispatch, then the pinned buffer (copied out: it is reused)."""
+        copy = ctx.get("stats_copy")
+        if copy is None:
+            return self._read(ctx["stats"], "stats")
+        buf, done = copy
+        if done is not None:
+            done.synchronize()
+        self.host_reads["stats"] += 1
+        return buf.numpy().copy()
+
+    def _process_ctx(self) -> FrameResult:
+        """Read the oldest in-flight frame's packed stats (its one read) and
+        make every host decision on it."""
+        ctx = self._ctxs.pop(0)
         cfg = self.config
         tc = cfg.tracker
         S = fstep
         with self.timer.stage("stats_pull"):
-            stats = self._read(ctx["stats"], "stats")
+            stats = self._read_stats(ctx)
         finite = bool(np.isfinite(stats).all())
 
         if finite:
@@ -346,17 +470,20 @@ class SLAMSystem:
         else:
             # This frame tracked against a non-finite map (a corrupting
             # bundle adjustment, detected at this same read): demote it to
-            # BAD and keep the pose it started from, so no result carries
-            # NaN.
+            # BAD and go back to the newest finite pose read. In sync mode
+            # and at depth 1 that is the pose the frame started from, bit
+            # for bit; deeper, the frame dispatched before this one may be
+            # non-finite too, so the device's pose before this frame is no
+            # fallback (the JAX package restores it and can return NaN).
             quality = tracker_mod.QUALITY_BAD
-            self.R, self.t = ctx["R_before"], ctx["t_before"]
+            pose_R, pose_t = (p.copy() for p in self._pose_host)
+            self.R = torch.tensor(pose_R, device=self.device)
+            self.t = torch.tensor(pose_t, device=self.device)
             self.velocity = torch.zeros(6, device=self.device)
             self._msd = torch.zeros((), device=self.device)
             self._depth = torch.ones((), device=self.device)
             self.vel_mag = 0.0
             self.scene_depth_mean = 1.0
-            self._pose_host = ctx["pose_before"]
-            pose_R, pose_t = (p.copy() for p in ctx["pose_before"])
             n_found, did_coarse = 0, False
             n_points = self._n_points_host
             n_keyframes = self._kf_count_host

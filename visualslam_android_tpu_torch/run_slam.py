@@ -5,8 +5,9 @@ similarity-aligned ATE where ground truth exists.
 
 Port of the JAX package's ``run_slam.py``, with its flags, presets and
 report keys. It runs on the CUDA card unless ``--device cpu`` is given.
-The facade runs in sync mode, the only one the port has: ``--sync`` is
-accepted, and ``--pipeline-depth`` above 1 is an error.
+The facade runs pipelined (results one frame late at the default
+``--pipeline-depth 1``, the same as ``--sync``'s bit for bit) unless
+``--sync`` is given.
 
 Usage:
   python -m visualslam_android_tpu_torch.run_slam --dataset synthetic --frames 40
@@ -53,16 +54,16 @@ def parse_args(argv=None):
                    help="torch device to run on (default: the CUDA card; "
                         "'cpu' runs the plain versions on the host)")
     p.add_argument("--sync", action="store_true",
-                   help="synchronous per-frame results: the port's only "
-                        "mode, accepted for the JAX command line")
+                   help="synchronous per-frame results (one blocking stats "
+                        "read per frame) instead of the default pipelined "
+                        "mode, where results lag and steady-state tracking "
+                        "never blocks on the read")
     p.add_argument("--pipeline-depth", type=int, default=1,
-                   help="must be 1: the pipelined stats pull is not ported")
-    args = p.parse_args(argv)
-    if args.pipeline_depth != 1:
-        p.error("--pipeline-depth above 1 needs the pipelined stats pull, "
-                "which ROADMAP.md lists under 'Do not port': the port runs "
-                "in sync mode only")
-    return args
+                   help="pipelined mode: frames in flight before waiting "
+                        "for the oldest one's stats. 1 = results one frame "
+                        "late, bit for bit those of --sync; d >= 2: the "
+                        "host's decisions trail by d frames")
+    return p.parse_args(argv)
 
 
 def make_config(preset: str, size):
@@ -134,23 +135,31 @@ def main(argv=None):
                          "CPU")
     images, n_frames, gt_centers, size, info = load_frames(args, device)
     config = make_config(args.preset, size)
-    sys_ = slam.SLAMSystem(config, seed=args.seed, device=device)
+    sys_ = slam.SLAMSystem(config, seed=args.seed, pipelined=not args.sync,
+                           pipeline_depth=args.pipeline_depth, device=device)
     sys_.timer.enabled = args.profile
 
     est, used_gt = [], []
+
+    def consume(res):
+        if not res.valid:
+            return  # pipelined warm-up placeholder
+        if not args.json:
+            print(f"[{res.frame_id:4d}] {res.message}"
+                  + ("  (lost)" if res.lost else ""))
+        if res.phase == slam.PHASE_TRACKING and not res.lost:
+            est.append((res.pose_R, res.pose_t))
+            if gt_centers is not None:
+                used_gt.append(gt_centers[res.frame_id])
+
     t0 = time.perf_counter()
     with profiling.profiler_trace(args.trace_dir):
         for k, img in enumerate(images):
             if k in (args.init_frame, args.stereo_frame):
                 sys_.on_touch()
-            res = sys_.track_frame(img)
-            if not args.json:
-                print(f"[{res.frame_id:4d}] {res.message}"
-                      + ("  (lost)" if res.lost else ""))
-            if res.phase == slam.PHASE_TRACKING and not res.lost:
-                est.append((res.pose_R, res.pose_t))
-                if gt_centers is not None:
-                    used_gt.append(gt_centers[res.frame_id])
+            consume(sys_.track_frame(img))
+        for res in sys_.flush():
+            consume(res)
     wall = time.perf_counter() - t0
     if args.profile:
         print(sys_.timer.report())
