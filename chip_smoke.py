@@ -147,7 +147,26 @@ ranks sharing the card over gloo.
    the host's wait in the stats read per tracked frame (a blocking read
    in sync mode, the wait on the pinned copy's CUDA event pipelined) and
    the synchronising calls per tracked frame with no mapping work, which
-   must be the frame's reads but for the pipelined stats read;
+   must be the frame's reads but for the pipelined stats read. Every
+   facade replays its tracking step as CUDA graphs (models/step_graph.py),
+   captured on its first tracked frame, whose synchronisations (one per
+   capture) are reported apart; each run prints its step_graph_counts,
+   and FAST's wrapper calls expected are one a front-end run plus the
+   step's three eager warm-ups and six captures, less one a replay (a
+   replay runs the recorded kernel with no wrapper call; phase 19 counts
+   the kernel in the replays);
+19. (run right after phase 10's modes) the tracking step's CUDA graphs
+   against the eager step: a facade 24 frames into phase 10's sequence
+   gives the state, the next frame and draws from a seed are the inputs;
+   each variant (use_prior, forced_coarse) runs eagerly and through a new
+   StepGraphs (its first call captures all six graphs, timed), and every
+   output (stats, pose, found masks, map) must be bit-equal; then each
+   graph's replay is timed by CUDA events (median of 50) beside the eager
+   step (host clock to a synchronisation, median of 5), and 5 replays of
+   each run under torch.profiler (after one in its warm-up step), which
+   must see fast_levels_kernel once a replay: the device activities a
+   replay holds, their summed time and the share of the replay's span,
+   traced and untraced, that their union covers;
 11. the large-map facade: tools/run_large_map_slam.py's configuration
    (800x480, max_keyframes 128 above dense_solver_max_cams 64,
    min_frames_between_kfs 4) pipelined at depth 3, as the tool runs it,
@@ -277,6 +296,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import dataclasses
 import json
 import os
 import statistics
@@ -407,6 +427,17 @@ PHOTO_BOOT_BY = 12
 # of the span on these frames on the CPU, which fails that bound (ROADMAP
 # queue 3, reference fault j); the port reads 6.08-6.30% on the CPU.
 PHOTO_ATE_SHARE = 0.075
+# Phase 19: the tracking step's CUDA graphs (models/step_graph.py) against
+# the eager step, on the state of a facade STEP_GRAPH_FRAMES frames into
+# phase 10's sequence and that sequence's next frame, with draws from
+# STEP_GRAPH_SEED; STEP_GRAPH_REPS timed replays of each graph, STEP_EAGER_REPS
+# eager steps.
+STEP_GRAPH_FRAMES = 24
+STEP_GRAPH_SEED = 19
+STEP_GRAPH_REPS = 50
+STEP_EAGER_REPS = 5
+# Replays of each graph under torch.profiler: what a replay holds.
+STEP_TRACED_REPS = 5
 # After phase 10's checked run, its facade goes on for PROFILE_FRAMES frames
 # with nothing wrapped, under torch.profiler: the device's busy share.
 PROFILE_FRAMES = 10
@@ -1854,7 +1885,8 @@ def phase_large_map(device, card, fast, slam, fstep, bundle, synthetic,
              + bundle.HOST_READS["cg"])
     cg = dict(bundle.CG_STATS)
     n_reloc = sum(r.message.startswith("Relocalized") for r in results)
-    n_front = len(results) + n_reloc
+    n_graph, graph_words = graph_calls(sys_)
+    n_front = len(results) + n_reloc + n_graph
     print(f"large map: {tracked} of {n_frames} frames tracked, "
           f"{n_kf} keyframes (the default run made {default_keyframes}), "
           f"{n_pts} points, map finite {finite}; {n_frames / wall:.3f} "
@@ -1882,9 +1914,9 @@ def phase_large_map(device, card, fast, slam, fstep, bundle, synthetic,
         print(f"  bundle adjustment {key}: {len(ms)} rounds, median "
               f"{statistics.median(ms):.3f} ms, max {max(ms):.3f} ms, sum "
               f"{sum(ms):.3f} ms  [{card}]")
-    print(f"large map: FAST launches {launches}: {n_front} front-end runs "
-          f"({len(results)} frames + {n_reloc} relocalized), {n_kf} "
-          f"keyframes inserted")
+    print(f"large map: FAST launches {launches}: {n_front} wrapper calls "
+          f"({len(results)} frames + {n_reloc} relocalized{graph_words}), "
+          f"{n_kf} keyframes inserted")
     scaled = {k: v for k, v in dispatched.items() if "prefix" not in k}
     check(scaled and {k.split()[0] for k in scaled}
           <= {"band+band_pcg", "scatter+pcg"},
@@ -1899,7 +1931,7 @@ def phase_large_map(device, card, fast, slam, fstep, bundle, synthetic,
           f"{default_keyframes}")
     check(launches["fast_detect_levels"] == n_front,
           f"fast_detect_levels launched {launches['fast_detect_levels']} "
-          f"times for {n_front} front-end runs")
+          f"times for {n_front} wrapper calls")
     check(launches["fast_nonmax_levels"] == n_kf,
           f"fast_nonmax_levels launched {launches['fast_nonmax_levels']} "
           f"times for {n_kf} keyframes")
@@ -1964,7 +1996,7 @@ def run_slam_variant(device, card, fast, run_slam, serialization,
     """run_slam --dataset tum --frames 120 --json on one variant of the
     TUM-format sequence, through its main(), on the card; with `save_map`
     the saved map is loaded back against the live one. Returns (variant,
-    report, span, FAST launches, relocalizations)."""
+    report, span, FAST launches, relocalizations, step warm-ups)."""
     import io
     import tempfile
 
@@ -2006,7 +2038,8 @@ def run_slam_variant(device, card, fast, run_slam, serialization,
                   f"{same}")
             check(same and cfg == sys_.config, "the saved map does not load "
                   "back equal to the live one")
-    return variant, report, span, launches, sys_.host_reads["reloc"]
+    return (variant, report, span, launches, sys_.host_reads["reloc"],
+            graph_calls(sys_)[0])
 
 
 def phase_run_slam(device, card, fast, run_slam, serialization, synthetic,
@@ -2024,7 +2057,7 @@ def phase_run_slam(device, card, fast, run_slam, serialization, synthetic,
                   f"({(why or [str(e)])[0].strip()})")
     total = {}
     for i, (kind, width) in enumerate(TUM_VARIANTS):
-        variant, report, span, launches, n_reloc = run_slam_variant(
+        variant, report, span, launches, n_reloc, warm = run_slam_variant(
             device, card, fast, run_slam, serialization, synthetic, cam_ops,
             lie, imageio, kind == "degraded", width, save_map=i == 0)
         ate = report.get("ate_rmse", float("inf"))
@@ -2050,8 +2083,8 @@ def phase_run_slam(device, card, fast, run_slam, serialization, synthetic,
               f"{variant}: {report['keyframes']} keyframes")
         check(ate < TUM_ATE_SHARE * span,
               f"{variant}: ATE {ate} over a span of {span}")
-        check(TUM_FRAMES <= launches["fast_detect_levels"]
-              <= TUM_FRAMES + n_reloc
+        check(TUM_FRAMES + warm <= launches["fast_detect_levels"]
+              <= TUM_FRAMES + n_reloc + warm
               and launches["fast_nonmax_levels"] == report["keyframes"],
               f"{variant}: FAST launches {launches} for {TUM_FRAMES} frames "
               f"and {report['keyframes']} keyframes")
@@ -2247,10 +2280,11 @@ def facade_outcome(label, sys_, results, truth, wall, launches, slam, ate,
     check(not n_bad, f"{label}: {n_bad} BAD frames")
     check(bool(torch.isfinite(sys_.slam_map.points.pos_w).all()),
           f"{label}: the map holds a NaN")
-    check(launches["fast_detect_levels"] == len(results) + n_reloc
+    n_graph, graph_words = graph_calls(sys_)
+    check(launches["fast_detect_levels"] == len(results) + n_reloc + n_graph
           and launches["fast_nonmax_levels"] == n_kf,
-          f"{label}: FAST launches {launches} for {len(results)} frames, "
-          f"{n_reloc} relocalized, {n_kf} keyframes")
+          f"{label}: FAST launches {launches} for {len(results)} frames + "
+          f"{n_reloc} relocalized{graph_words}, {n_kf} keyframes")
     return first, est, gtc, rmse, span
 
 
@@ -2471,14 +2505,23 @@ def phase_full_slam(device, card, fast, slam, fstep, relocalizer,
           f"{sum(n_reads.values()) / max(len(tracking), 1):.3f} per frame; "
           f"stats reads {n_reads['stats']} for {len(tracking)} frames")
     if torch.device(device).type == "cuda":
-        where = {}
+        # The frame that captures the tracking step's graphs synchronises
+        # in torch.cuda.graph, once per capture: reported apart.
+        capturing = [k for k in tracking if run["captures"][k]]
+        where, once = {}, {}
         for k in tracking:
             for call in syncs[k]:
-                where[call] = where.get(call, 0) + 1
+                tally = once if k in capturing else where
+                tally[call] = tally.get(call, 0) + 1
         print(f"full SLAM: synchronising calls PyTorch flagged over those "
               f"frames: {sum(where.values())} (reads counted: "
               f"{sum(n_reads.values())}); by line: "
               f"{sorted(where.items(), key=lambda kv: -kv[1])}")
+        print(f"full SLAM: the step's graphs captured on frame(s) "
+              f"{capturing} ({sum(run['captures'][k] for k in capturing)} "
+              f"graphs): one-off synchronising calls there "
+              f"{sum(once.values())}, by line {sorted(once.items())}")
+        check(len(capturing) == 1, f"graphs captured on frames {capturing}")
         # Triangulation takes its null vector without eigh, whose error
         # check synchronised once per growth level.
         tri = {call: n for call, n in where.items()
@@ -2508,6 +2551,8 @@ def phase_full_slam(device, card, fast, slam, fstep, relocalizer,
           "no keyframe integration or relocalization to replay")
     mode_line("sync, checked run (mapping tasks between synchronisations)",
               run, first, 0, card)
+    print(f"full SLAM: step_graph_counts {sys_.step_graph_counts} over "
+          f"{len(tracking)} tracked calls")
     profile_window(sys_, images[SLAM_RETURN_TO + SLAM_AFTER:][:PROFILE_FRAMES],
                    device, card)
     return launches, rec, images, poses, results
@@ -2517,13 +2562,14 @@ def drive_facade(sys_, images, fast, bundle, device):
     """Phase 10's sequence through the facade, touches at frames 0 and 6,
     then flush(); FAST launches set to 0 before and read after. Per call it
     records the facade's and bundle_adjust's reads, the synchronising calls
-    PyTorch flags (flagged_syncs) and the mapping task; per stats read the
-    host's wait in it (SLAMSystem._read_stats: the blocking read in sync
-    mode, the wait on the copy's event in pipelined mode). Returns a dict:
-    calls (what each track_frame returned), flushed, reads, syncs, tasks
-    (by frame), stats_wait (s, per read), wall (s), launches."""
+    PyTorch flags (flagged_syncs), the tracking step's graph captures and
+    the mapping task; per stats read the host's wait in it
+    (SLAMSystem._read_stats: the blocking read in sync mode, the wait on
+    the copy's event in pipelined mode). Returns a dict: calls (what each
+    track_frame returned), flushed, reads, syncs, captures (per call),
+    tasks (by frame), stats_wait (s, per read), wall (s), launches."""
     run = {"calls": [], "reads": [], "syncs": [], "tasks": {},
-           "stats_wait": []}
+           "stats_wait": [], "captures": []}
     read_stats, step = sys_._read_stats, sys_._mapmaker_step
 
     def timed_read(ctx):
@@ -2550,7 +2596,10 @@ def drive_facade(sys_, images, fast, bundle, device):
                 before = dict(sys_.host_reads,
                               ba=bundle.HOST_READS["bundle_adjust"])
                 n_flagged = len(flagged)
+                captures = sys_.step_graph_counts["captures"]
                 run["calls"].append(sys_.track_frame(img))
+                run["captures"].append(
+                    sys_.step_graph_counts["captures"] - captures)
                 after = dict(sys_.host_reads,
                              ba=bundle.HOST_READS["bundle_adjust"])
                 run["reads"].append({key: after[key] - before[key]
@@ -2682,20 +2731,35 @@ def slam_bounds(label, results, poses, sys_, launches, depth, slam, ate):
     print(f"{label}: coarse stage on the relocalized frame ({k_rec}) and the "
           f"next: {rec_frame.did_coarse}, {after}")
     n_reloc = sum(r.message.startswith("Relocalized") for r in results)
-    n_front = len(results) + n_reloc
-    print(f"{label}: FAST launches {launches}: {n_front} front-end runs "
+    n_graph, graph_words = graph_calls(sys_)
+    n_front = len(results) + n_reloc + n_graph
+    print(f"{label}: FAST launches {launches}: {n_front} wrapper calls "
           f"({len(results)} frames + {n_reloc} relocalized frame run "
-          f"twice), {n_kf} keyframes inserted")
+          f"twice{graph_words}), {n_kf} keyframes inserted")
     check(launches["fast_detect_levels"] == n_front,
           f"{label}: fast_detect_levels launched "
-          f"{launches['fast_detect_levels']} times for {n_front} front-end "
-          f"runs")
+          f"{launches['fast_detect_levels']} times for {n_front} wrapper "
+          f"calls")
     check(launches["fast_nonmax_levels"] == n_kf,
           f"{label}: fast_nonmax_levels launched "
           f"{launches['fast_nonmax_levels']} times for {n_kf} keyframes")
     check(launches["fast_detect"] == 0,
           f"{label}: the single-image wrapper launched")
     return first, tracked
+
+
+def graph_calls(sys_):
+    """(n, words): what the tracking step's graphs (models/step_graph.py)
+    add to FAST's wrapper calls of one a front-end run, and the sum in
+    words. Its eager warm-ups and its captures call the wrapper; a replay
+    runs the recorded kernel with no call (phase 19 counts the kernel in
+    the replays from the device trace). 0 on the CPU."""
+    if sys_.device.type != "cuda":
+        return 0, ""
+    c = sys_.step_graph_counts
+    return (c["eager"] + c["captures"] - c["replays"],
+            f" + {c['eager']} step warm-ups + {c['captures']} captures - "
+            f"{c['replays']} replays")
 
 
 def same_results(label, a, b):
@@ -2745,6 +2809,9 @@ def phase_slam_modes(device, card, fast, slam, bundle, ate, images, poses,
         check(waiting == list(range(first + 1, first + 1 + depth)),
               f"{label}: placeholders on calls {waiting}")
         mode_line(label, run, first, depth, card)
+        print(f"full SLAM, {label}: step_graph_counts "
+              f"{sys_.step_graph_counts}; graphs captured on calls "
+              f"{[k for k, n in enumerate(run['captures']) if n]}")
         slam_bounds(f"full SLAM, {label}", results, poses, sys_,
                     run["launches"], depth, slam, ate)
         if depth <= 1:
@@ -2755,6 +2822,176 @@ def phase_slam_modes(device, card, fast, slam, bundle, ate, images, poses,
                   f"sync run's, poses bit for bit")
         del sys_
     return total
+
+
+def step_differences(a, b):
+    """{field: largest |difference|} between two FrameStepOut, per field,
+    over every tensor (0.0 where bit-equal; booleans and integers as
+    counts of differing entries)."""
+    from visualslam_android_tpu_torch.utils.tensors import tree_leaves
+
+    out = {}
+    for field in dataclasses.fields(a):
+        worst = 0.0
+        for x, y in zip(tree_leaves(getattr(a, field.name)),
+                        tree_leaves(getattr(b, field.name))):
+            if torch.equal(x, y):
+                continue
+            if x.dtype.is_floating_point:
+                d = (x - y).abs()
+                d = torch.where(torch.isnan(x) & torch.isnan(y), 0.0, d)
+                worst = max(worst, float(d.max()))
+            else:
+                worst = max(worst, float((x != y).sum()))
+        out[field.name] = worst
+    return out
+
+
+def phase_step_graphs(device, card, slam, fstep, step_graph, images):
+    """Phase 19: the tracking step's CUDA graphs against the eager step.
+    A facade runs STEP_GRAPH_FRAMES frames of phase 10's sequence; on its
+    state and the next frame, with draws made once from STEP_GRAPH_SEED,
+    each variant runs eagerly and through a new StepGraphs (its first call
+    captures all six graphs, timed), and every output must be bit-equal.
+    Then each variant's graph is replayed STEP_GRAPH_REPS times (CUDA
+    events, median) beside STEP_EAGER_REPS eager steps (host clock to a
+    synchronisation)."""
+    from visualslam_android_tpu_torch.config import SLAMConfig
+
+    t_phase = time.perf_counter()
+    sys_ = slam.SLAMSystem(SLAMConfig(), seed=0, device=device)
+    for k, img in enumerate(images[:STEP_GRAPH_FRAMES]):
+        if k in (0, 6):
+            sys_.on_touch()
+        sys_.track_frame(img)
+    check(sys_.phase == slam.PHASE_TRACKING and sys_.lost_frames == 0,
+          "phase 19: the facade is not tracking")
+    print(f"step graphs: the facade after {STEP_GRAPH_FRAMES} frames: "
+          f"step_graph_counts {sys_.step_graph_counts}")
+    cfg = sys_.config
+    state = (sys_.slam_map.clone(), sys_.cam.clone(), sys_.R.clone(),
+             sys_.t.clone(), sys_.velocity.clone(), sys_._msd.clone(),
+             sys_._depth.clone(), sys_._wiggle_dev.clone(),
+             sys_.sbi_last.clone(), sys_.new_points.clone(),
+             sys_.failure_mask.clone(), torch.zeros(2, device=device))
+    img = images[STEP_GRAPH_FRAMES]
+    gen = torch.Generator(device=device).manual_seed(STEP_GRAPH_SEED)
+    n = cfg.tracker.max_map_points
+    uniforms = tuple(torch.rand(n, generator=gen, device=device)
+                     for _ in range(2))
+    del sys_
+    graphs = step_graph.StepGraphs()
+
+    def step(flags, **kwargs):
+        return fstep.frame_step(img, *state, cfg, use_prior=flags[0],
+                                forced_coarse=flags[1], uniforms=uniforms,
+                                **kwargs)
+
+    for flags in step_graph.VARIANTS:
+        eager = step(flags)
+        sync(device)
+        t0 = time.perf_counter()
+        out = step(flags, graphs=graphs)
+        sync(device)
+        wall = time.perf_counter() - t0
+        diff = step_differences(eager, out)
+        took = (f"first call, warm-ups and captures included: {wall:.3f} s"
+                if graphs.counts["captures"] and flags == step_graph.VARIANTS[0]
+                else f"call {1e3 * wall:.3f} ms")
+        print(f"step graphs {flags}: {took}; differences from the eager "
+              f"step by field: {diff}")
+        check(not any(diff.values()),
+              f"step graphs {flags}: the replay differs from the eager step:"
+              f" {diff}")
+        del eager, out
+    print(f"step graphs: all three variants bit-equal to the eager step "
+          f"(stats, pose, found masks, map); counts {graphs.counts}")
+    if torch.device(device).type != "cuda":
+        return  # no graph to time (a rehearsal on the CPU)
+    replay_ms = {}
+    for flags in step_graph.VARIANTS:
+        graph = graphs._graphs[flags, 0][0]
+        times = replay_ms[flags] = []
+        for _ in range(STEP_GRAPH_REPS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            graph.replay()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        eager_ms = []
+        for _ in range(STEP_EAGER_REPS):
+            sync(device)
+            t0 = time.perf_counter()
+            step(flags)
+            sync(device)
+            eager_ms.append(1e3 * (time.perf_counter() - t0))
+        print(f"step graphs {flags}: replay device time median "
+              f"{statistics.median(times):.3f} ms (min {min(times):.3f}, max "
+              f"{max(times):.3f}, {STEP_GRAPH_REPS} replays); eager step "
+              f"{statistics.median(eager_ms):.3f} ms host to sync (median of "
+              f"{STEP_EAGER_REPS})  [{card}]")
+    for flags in step_graph.VARIANTS:
+        graph = graphs._graphs[flags, 0][0]
+        span_ms, kernels = traced_replays(graph, STEP_TRACED_REPS, device)
+        n_fast = sum("fast_levels_kernel" in name for name, _, _ in kernels)
+        summed = sum(b - a for _, a, b in kernels) / 1e6
+        union = union_ns([(a, b) for _, a, b in kernels]) / 1e6
+        print(f"step graphs {flags}, {STEP_TRACED_REPS} replays under "
+              f"torch.profiler: {span_ms / STEP_TRACED_REPS:.3f} ms a replay "
+              f"(CUDA events; {statistics.median(replay_ms[flags]):.3f} "
+              f"untraced), {len(kernels) / STEP_TRACED_REPS:.1f} device "
+              f"activities a replay (kernels, copies, sets), their time "
+              f"summed {summed / STEP_TRACED_REPS:.3f} ms and their union "
+              f"{union / STEP_TRACED_REPS:.3f} ms a replay: "
+              f"{100 * union / span_ms:.2f}% of the traced span busy, "
+              f"{100 * union / STEP_TRACED_REPS / statistics.median(replay_ms[flags]):.2f}"
+              f"% of the untraced; "
+              f"fast_levels_kernel {n_fast} times  [{card}]")
+        check(n_fast == STEP_TRACED_REPS,
+              f"step graphs {flags}: the profiler saw fast_levels_kernel "
+              f"{n_fast} times in {STEP_TRACED_REPS} replays")
+    print(f"phase 19 took {time.perf_counter() - t_phase:.1f} s")
+
+
+def traced_replays(graph, reps, device):
+    """`reps` replays of `graph` back to back under torch.profiler (the
+    CUDA activity alone), after one replay in the profiler's warm-up step,
+    whose activity it drops: (their span in ms by CUDA events around them,
+    [(name, start ns, end ns)] of each device activity the profiler saw
+    in them)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    sync(device)
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        graph.replay()
+        sync(device)
+        prof.step()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            graph.replay()
+        end.record()
+        end.synchronize()
+        prof.step()
+    events = prof.profiler.kineto_results.events()
+    return start.elapsed_time(end), [
+        (e.name(), e.start_ns(), e.start_ns() + e.duration_ns())
+        for e in events
+        if e.device_type() == torch.autograd.DeviceType.CUDA]
+
+
+def union_ns(spans):
+    """The length of the union of [start, end) intervals."""
+    busy, end = 0, 0
+    for a, b in sorted(spans):
+        busy += max(0, b - max(a, end))
+        end = max(end, b)
+    return busy
 
 
 def device_profile(run, device):
@@ -2775,13 +3012,9 @@ def device_profile(run, device):
         sync(device)
         window = time.perf_counter() - t0
     events = prof.profiler.kineto_results.events()
-    spans = sorted((e.start_ns(), e.start_ns() + e.duration_ns())
-                   for e in events
-                   if e.device_type() == torch.autograd.DeviceType.CUDA)
-    busy_ns, end = 0, 0
-    for a, b in spans:
-        busy_ns += max(0, b - max(a, end))
-        end = max(end, b)
+    busy_ns = union_ns([(e.start_ns(), e.start_ns() + e.duration_ns())
+                        for e in events
+                        if e.device_type() == torch.autograd.DeviceType.CUDA])
     launches = sum(e.name() in ("cudaLaunchKernel", "cudaLaunchKernelExC")
                    for e in events)
     return out, window, busy_ns / 1e9, launches
@@ -3547,7 +3780,7 @@ def main():
     from visualslam_android_tpu_torch.models import keyframe as kf_mod
     from visualslam_android_tpu_torch.models import mapmaker
     from visualslam_android_tpu_torch.models import relocalizer, slam
-    from visualslam_android_tpu_torch.models import tracker
+    from visualslam_android_tpu_torch.models import step_graph, tracker
     from visualslam_android_tpu_torch.ops import camera as cam_ops
     from visualslam_android_tpu_torch.ops import cuda_build, fast, image, lie
     from visualslam_android_tpu_torch.ops import mestimator, scatter, wls
@@ -3788,9 +4021,13 @@ def main():
         modes_launches = phase_slam_modes(device, card, fast, slam, bundle,
                                           ate, slam_images, slam_poses,
                                           slam_results)
-    del slam_images, slam_poses, slam_results
     print(f"phase 10's runs in the facade's modes took "
           f"{time.perf_counter() - t_phase:.1f} s")
+
+    # ---- 19. the tracking step's CUDA graphs against the eager step ----
+    phase_step_graphs(device, card, slam, frame_step, step_graph,
+                      slam_images)
+    del slam_images, slam_poses, slam_results
 
     # ---- 11. the large-map facade ----
     with seg_path("large_map"):

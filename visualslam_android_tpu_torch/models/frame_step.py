@@ -92,7 +92,7 @@ def frame_step(img, slam_map: SLAMMap, cam, R, t, velocity, msd, depth_mean,
                wiggle_depth_norm, sbi_last: sbi_ops.SBI, new_points,
                failure_mask, pending, config: SLAMConfig,
                use_prior: bool = True, forced_coarse: bool = False,
-               uniforms=None, generator=None) -> FrameStepOut:
+               uniforms=None, generator=None, graphs=None) -> FrameStepOut:
     """The complete per-frame hot path.
 
     use_prior=False on a relocalization frame (pose from the relocalizer,
@@ -101,7 +101,31 @@ def frame_step(img, slam_map: SLAMMap, cam, R, t, velocity, msd, depth_mean,
     selections (see tracker.track_map). The input map is not modified:
     the returned map shares the keyframe store and carries new point and
     measurement tensors.
+
+    graphs: a step_graph.StepGraphs to run the step through (the facade's:
+    a CUDA graph replay from static buffers on the card, reused buffers on
+    the CPU; the same results). The outputs are then valid until its next
+    step, but the state, which comes back in the buffers that step reads.
     """
+    if graphs is not None:
+        return graphs.step(
+            _frame_step, img, slam_map, cam, R, t, velocity, msd,
+            depth_mean, wiggle_depth_norm, sbi_last, new_points,
+            failure_mask, pending, config, use_prior=use_prior,
+            forced_coarse=forced_coarse, uniforms=uniforms,
+            generator=generator)
+    return _frame_step(img, slam_map, cam, R, t, velocity, msd, depth_mean,
+                       wiggle_depth_norm, sbi_last, new_points, failure_mask,
+                       pending, config, use_prior=use_prior,
+                       forced_coarse=forced_coarse, uniforms=uniforms,
+                       generator=generator)
+
+
+def _frame_step(img, slam_map: SLAMMap, cam, R, t, velocity, msd, depth_mean,
+                wiggle_depth_norm, sbi_last: sbi_ops.SBI, new_points,
+                failure_mask, pending, config: SLAMConfig,
+                use_prior: bool = True, forced_coarse: bool = False,
+                uniforms=None, generator=None) -> FrameStepOut:
     tc = config.tracker
     f32 = torch.float32
 

@@ -56,6 +56,7 @@ from visualslam_android_tpu_torch.models import bootstrap
 from visualslam_android_tpu_torch.models import bundle as bundle_mod
 from visualslam_android_tpu_torch.models import frame_step as fstep
 from visualslam_android_tpu_torch.models import map_store, relocalizer
+from visualslam_android_tpu_torch.models import step_graph
 from visualslam_android_tpu_torch.models import tracker as tracker_mod
 from visualslam_android_tpu_torch.ops import camera as cam_ops
 from visualslam_android_tpu_torch.utils import profiling
@@ -133,6 +134,13 @@ class SLAMSystem:
         # own.
         self.host_reads = {"stats": 0, "reloc": 0, "pending": 0,
                            "bootstrap": 0, "solver": 0}
+        # The tracking step's cache (models/step_graph.py): captured CUDA
+        # graphs replayed from static buffers on the card, reused buffers
+        # on the CPU. Its counts: "captures", "replays", "eager" (steps run
+        # outside a graph: all on the CPU, the warm-ups on the card). It
+        # outlives reset(): the shapes stay those of the configuration.
+        self._step_graphs = step_graph.StepGraphs()
+        self.step_graph_counts = self._step_graphs.counts
         # Wall-clock stage timer, off by default (run_slam --profile).
         self.timer = profiling.StageTimer(enabled=False)
         # Results not yet handed to the caller (pipelined mode can make two
@@ -154,9 +162,10 @@ class SLAMSystem:
 
     def _read(self, x, kind):
         """A blocking read of x into a numpy array, counted by kind (the
-        pipelined stats copy is counted in _read_stats)."""
+        pipelined stats copy is counted in _read_stats). A copy: on the CPU
+        x may be a step output, which the next step overwrites."""
         self.host_reads[kind] += 1
-        return x.cpu().numpy()
+        return x.cpu().numpy().copy()
 
     # ---- control -----------------------------------------------------
 
@@ -366,9 +375,21 @@ class SLAMSystem:
                 self._msd, self._depth, self._wiggle_dev, self.sbi_last,
                 self.new_points, self.failure_mask, pending_vec, cfg,
                 use_prior=use_prior, forced_coarse=forced_coarse,
-                generator=self.generator,
+                generator=self.generator, graphs=self._step_graphs,
             )
             self.timer.sync(out.stats)
+        # The step's state comes back in the buffers its next step reads;
+        # its other outputs last until the next step, so what outlives that
+        # is copied (_keep). _prev_frame always names the newest frame, so
+        # it needs no copy.
+        ctx = dict(
+            stats=out.stats, img=img, frame=out.frame, found=out.found,
+            found_pos=out.found_pos, search_level=out.search_level,
+            did_subpix=out.did_subpix, R=out.R, t=out.t,
+            pending_kind=pending_kind, recovered=recovered, fid=fid,
+        )
+        if self.pipelined and self.pipeline_depth > 1:
+            self._keep(ctx)  # resolved after later steps
         self.slam_map = out.slam_map
         self.R, self.t, self.velocity = out.R, out.t, out.velocity
         self._msd, self._depth = out.msd, out.depth
@@ -381,12 +402,6 @@ class SLAMSystem:
         with self.timer.stage("mapmaker"):
             self._mapmaker_step()
             self.timer.sync(self.slam_map)
-        ctx = dict(
-            stats=out.stats, frame=out.frame, found=out.found,
-            found_pos=out.found_pos, search_level=out.search_level,
-            did_subpix=out.did_subpix, R=out.R, t=out.t,
-            pending_kind=pending_kind, recovered=recovered, fid=fid,
-        )
         self._ctxs.append(ctx)
         if not self.pipelined:
             return self._process_ctx()
@@ -399,6 +414,25 @@ class SLAMSystem:
             done.record(torch.cuda.current_stream(self.device))
         ctx["stats_copy"] = (buf, done)
         return None
+
+    @staticmethod
+    def _keep(ctx):
+        """Replace the step outputs in `ctx` that the keyframe queue takes
+        by copies of their own (the next step overwrites the step's). Level
+        0 of the frame's pyramid is the image the step was handed, bit for
+        bit, so that image stands for it."""
+        if ctx.get("kept"):
+            return
+        frame = ctx["frame"]
+        ctx["frame"] = map_store.FrameData(
+            pyramid=(ctx["img"],) + tuple(p.clone()
+                                          for p in frame.pyramid[1:]),
+            corner_mask=tuple(m.clone() for m in frame.corner_mask),
+            corner_score=tuple(s.clone() for s in frame.corner_score))
+        for key in ("found", "found_pos", "search_level", "did_subpix", "R",
+                    "t"):
+            ctx[key] = ctx[key].clone()
+        ctx["kept"] = True
 
     def _resolve_pending_sync(self):
         """Resolve a deferred bundle-adjustment result with a read of its
@@ -512,6 +546,7 @@ class SLAMSystem:
                 and ctx["fid"] - self.last_kf_frame > tc.min_frames_between_kfs
                 and len(self.kf_queue) < tc.max_kf_queue
                 and finite and stats[S.STAT_NEED_KF] > 0.5):
+            self._keep(ctx)
             self.kf_queue.append(dict(
                 frame=ctx["frame"], R=ctx["R"], t=ctx["t"],
                 found=ctx["found"], found_pos=ctx["found_pos"],

@@ -9,12 +9,14 @@ import functools
 import torch
 
 
-@functools.lru_cache(maxsize=256)
+@functools.lru_cache(maxsize=None)
 def const(values, device, dtype=torch.float32):
     """A constant tensor made once per (values, device, dtype). Creating
     it from host data on every call would copy from pageable memory, which
     waits for the device's stream; the per-frame path calls this instead.
-    Callers must not modify the result."""
+    Callers must not modify the result. The cache keeps every constant for
+    the life of the process: a captured CUDA graph reads them by address
+    (models/step_graph.py), so none may be freed."""
     return torch.tensor(values, dtype=dtype, device=device)
 
 
@@ -32,14 +34,23 @@ def default_device(device=None) -> torch.device:
     return torch.device("cuda")
 
 
-def _map(fn, value):
+def tree_map(fn, value):
+    """`value` (a tensor, a tuple or a TensorTree) with every tensor x
+    replaced by fn(x), structure kept."""
     if isinstance(value, torch.Tensor):
         return fn(value)
     if isinstance(value, TensorTree):
         return value._map(fn)
     if isinstance(value, tuple):
-        return tuple(_map(fn, v) for v in value)
+        return tuple(tree_map(fn, v) for v in value)
     return value
+
+
+def tree_leaves(value):
+    """The tensors of a tensor, a tuple or a TensorTree, in field order."""
+    out = []
+    tree_map(lambda x: out.append(x) or x, value)
+    return out
 
 
 class TensorTree:
@@ -49,7 +60,7 @@ class TensorTree:
     def _map(self, fn):
         return dataclasses.replace(
             self,
-            **{f.name: _map(fn, getattr(self, f.name))
+            **{f.name: tree_map(fn, getattr(self, f.name))
                for f in dataclasses.fields(self)},
         )
 
